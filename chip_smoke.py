@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
   kernels  the four fused-Cholesky wrappers against their plain PyTorch
            versions on the card, at the main-path shapes in f32 and at
            B=64 in f64, plus a non-PD instance that must come back NaN;
-           kernel, plain-version and library times
+           kernel, plain-version and library times, share of the bound
+           (bound_ms / ms), and schur_chol's two launches (assembly,
+           factor) timed apart
   cascade  make_coneqp_cascade(l=512, 'chol2_inv', 1e-7) on 1024
            scenario QPs with n=256: every status 0, gap/pres/dres
            <= 1e-7, IPM iterations/s, the batched kernels launched
@@ -176,6 +178,31 @@ def _solve_bound(B, n, nrhs, rhs_shared, esize):
                                  else "bytes")
 
 
+def schur_split_ms(P, Gt, d2, reps=10, warmup=2):
+    """Device ms of schur_chol's two launches, schur_assemble and
+    schur_factor, each between CUDA events recorded around it."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    B, n, _ = P.shape
+    gt_bs = Gt.stride(0) if Gt.dim() == 3 else 0
+    L = torch.empty((B, n, n), dtype=P.dtype, device=P.device)
+    D = torch.empty((B, n // fc.BP, fc.BP, fc.BP), dtype=P.dtype,
+                    device=P.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    asm = fac = 0.0
+    for r in range(warmup + reps):
+        ev[0].record()
+        fc._assemble(P, Gt, gt_bs, d2, d2.stride(0), L)
+        ev[1].record()
+        fc._factor(L, D, None)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if r >= warmup:
+            asm += ev[0].elapsed_time(ev[1])
+            fac += ev[1].elapsed_time(ev[2])
+    return asm / reps, fac / reps
+
+
 def _check_factor(fn, P, Gt, d2, dtype_name, label, equilibrate):
     import torch
     from cvxopt_tpu_torch.ops import fused_chol as fc
@@ -223,6 +250,8 @@ def phase_kernels(log, results):
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
         library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
+    r = results["fused_schur_cholesky_batched"]
+    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
 
     # -- kernel 4: batched solve, nrhs = 256 (identity, as chol2_inv's
     # inverse) and nrhs = 1 (chol2 solves of the rescue phase)
@@ -268,6 +297,8 @@ def phase_kernels(log, results):
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
         library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
+    r = results["fused_schur_cholesky"]
+    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
 
     # -- kernel 2: solve, nrhs = 1 (every chol2 KKT solve)
     r1 = torch.randn((B1, 1, n), device="cuda", dtype=f32, generator=g)
@@ -315,6 +346,10 @@ def phase_kernels(log, results):
               f"{name}/{sname} float64 disagree: {eL} {eD} {ex}")
     for k, v in f64errs.items():
         results[k]["rel_fro_err_float64_B64"] = v
+    for r in results.values():
+        for row in (r, r.get("nrhs1")):
+            if row:
+                row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "kernels", "ok": True, "results": results}, log)
 
 
@@ -412,7 +447,8 @@ def phase_entry(log, results):
 
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "bound_share")
 
 
 def main(argv=None):

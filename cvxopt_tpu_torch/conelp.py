@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from cvxopt_tpu_torch import cones
+from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 
 STATUS_RUNNING = -1
@@ -52,11 +53,11 @@ def _tnorm_parts(parts):
     return torch.sqrt(torch.clamp(t, min=0.0))
 
 
-def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cpu"):
+def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cuda"):
     """Dense single-problem inputs as tensors: c (n,), G (cdim, n),
     h (cdim,), A (p, n), b (p,), with 's' rows symmetrized from their
     column-major lower triangles."""
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     c = torch.as_tensor(c, **kw).reshape(-1)
     n = c.shape[0]
     h = torch.as_tensor(h, **kw).reshape(-1)

@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from cvxopt_tpu_torch._device import resolve_device
+
 Tensor = torch.Tensor
 
 
@@ -269,7 +271,7 @@ def ssqr(lmbda: Tensor, dims: ConeDims) -> Tensor:
 
 
 def cone_identity(dims: ConeDims, dtype=torch.float64,
-                  device="cpu") -> Tensor:
+                  device="cuda") -> Tensor:
     """Identity element e: ones on 'l', (1,0,..) per 'q' block,
     identity matrices for 's'."""
     e = np.zeros(dims.cdim)
@@ -281,7 +283,7 @@ def cone_identity(dims: ConeDims, dtype=torch.float64,
         idx = np.arange(m)
         blk[:, idx, idx] = 1.0
         e[off:off + cnt * m * m] = blk.reshape(-1)
-    return torch.tensor(e, dtype=dtype, device=device)
+    return torch.tensor(e, dtype=dtype, device=resolve_device(device))
 
 
 def diag_embed(lmbda: Tensor, dims: ConeDims) -> Tensor:

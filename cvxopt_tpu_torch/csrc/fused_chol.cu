@@ -6,56 +6,107 @@
 //   chol_solve  <- fused_cholesky_solve (:194) and
 //                  fused_cholesky_solve_batched (:404)
 //
-// schur_chol, one thread block per instance:
-//     S = P + Gt diag(dinv2) Gt'           (lower 64x64 tiles of S)
-//     [equilibrate] deq = 1/sqrt(max(diag S, 1e-30)),  S := D S D
-//     S = L L'  blocked right-looking Cholesky, panel BP = 64
-//     Dinv[j] = inverse of L's j-th diagonal 64x64 block
-// chol_solve, one block per (instance, R right-hand-side rows):
-//     x = (L L')^{-1} b for b stored as rows, panel by panel through
-//     the Dinv products (forward, then backward).
+// schur_chol is two launches:
+//   schur_assemble  S = P + Gt diag(dinv2) Gt', S's lower 128x128 tiles,
+//                   one block per (instance, tile), written into L
+//   schur_factor    one block per instance:
+//                   [equilibrate] deq = 1/sqrt(max(diag S, 1e-30)), S := D S D
+//                   S = L L'  blocked right-looking Cholesky, panel BP = 64
+//                   Dinv[j] = inverse of L's j-th diagonal 64x64 block
+// chol_solve: x = (L L')^{-1} b for b stored as rows, panel by panel through
+// the Dinv products (forward, then backward), in one of two kernels:
+//   solve_many  nrhs > FEW: one block per (instance, 64 rows of b)
+//   solve_few   nrhs <= FEW: one block per (instance, row of b)
 //
-// What bounds them on this card.  At the main-path shape (B = 1024,
-// n = 256, m = 512) the assembly of S's lower triangle is n (n+1) m FLOP
-// per instance against n^2 words of output: it is bound by FP32/FP64
-// operations on the CUDA cores (TF32 is off, so there is no tensor-core
-// path for full f32).  The panel recurrences (64 pivots with a block
-// barrier each, the 64x64 triangular inverse) are latency-bound.  The
-// solve at nrhs = 1 reads L's strictly lower off-diagonal tiles and Dinv
-// once per instance and is bound by bytes.  Its block holds R whole
-// right-hand-side rows in shared memory; the caller picks R to fit
-// (smem_optin), which limits n to what one row leaves room for.
+// What bounds them on this card, and what the design does about it.
 //
-// What the design does about it.  The TPU kernel held all of S in VMEM;
-// here S (256 KB in f32 at n = 256) does not fit the 227 KB of shared
-// memory a block may use, so S lives in the L output buffer in device
-// memory and the L2 cache holds the working set of the resident blocks.
-// Every product is done in 64x64 tiles staged through shared memory,
-// 16x16 threads each owning a 4x4 register micro-tile.  The Gt chunks
-// are scaled by dinv2 as they are staged, so the per-instance scaled G
-// is never formed (Gt may be shared across the batch: batch stride 0).
-// Latency of the sequential panel steps is hidden by running many
-// instances (blocks) per SM, not inside one block.
+// f32 runs on the CUDA cores (FFMA): TF32 is off in the port, because the
+// interior-point method diverges on reduced-precision products.
+//
+// schur_assemble is n (n+1) m FLOP per instance for S's lower triangle and
+// is bound by FP32 operations, provided shared memory and L2 keep up.  Each
+// thread owns an 8x8 register micro-tile (rows and columns tr*4 + i and
+// 64 + tr*4 + i) and reads its operands k-major, two 16-byte vectors per
+// operand per k: 4 vector loads for 64 FMAs.  k-chunks of KC = 16 are
+// copied row by row by a 3-stage cp.async ring, so the next chunks' copies
+// overlap this chunk's FMAs.  After the chunk's first barrier each thread
+// moves one 4x4 block of it k-major with 16-byte reads (conflict-free at
+// the row pitch KC + 4) and writes, the A side times dinv2 (copied with
+// the chunk), and a second barrier publishes it; the scaled G is never
+// formed.  The 64x64 quadrant of a diagonal tile above the diagonal is
+// skipped (uniformly, so no warp diverges): a diagonal tile costs 3/4 of
+// a full one, and n = 256 does 1.25x the lower triangle's FLOPs (64-wide
+// tiles: also 1.25x).  L2 traffic for a shared
+// Gt at B = 1024, n = 256, m = 512: 3 tiles x 2 x 128 x 512 x 4 bytes =
+// 1.5 MB per instance, 1.6 GB in all, about 0.3 ms at the L2's ~5.5 TB/s
+// against 0.73 ms of FFMA at the FP32 peak.
+//
+// schur_factor is latency-bound: 64 dependent pivots per panel.  The
+// diagonal block is factored in shared memory by 16-column sub-panels:
+// the sub-panel's columns are updated by those to their left (all
+// threads), its 16x16 diagonal block is factored in one warp's registers
+// with the pivots and columns passed by shuffle, and the rows below it are
+// solved by forward substitution, with three barriers per sub-panel (12
+// per panel, not one per pivot).  A pivot <= 0 or not finite sets a flag
+// the whole block reads after a barrier.  The triangular inverse of L11 is
+// a blocked 2x2 recursion (8x8 diagonal inverses, then X21 = -C^-1 B A^-1
+// at 8, 16 and 32 with unrolled full-length dots) on all threads.  L21 and
+// the trailing update are 64x64x64 tile products (4x4 register
+// micro-tiles, 16-byte operand reads) on tiles copied by cp.async; S lives
+// in the L output buffer in device memory and L2 holds the instance
+// (256 KB at n = 256).  A block uses 52 KB of shared memory in f32, so
+// three blocks share an SM and hide each other's barriers.
+//
+// solve_many does 64x64x64 tile products too: forward
+// acc = b_j - sum_kt Y[:, kt] L[o, kt]', y_j = acc Dinv[j]'; backward
+// acc = y_j - sum_kt X[:, kt] L[kt, o], x_j = acc Dinv[j].  Finished panels
+// of y and x live in the output X in device memory and come back through
+// L2; only the current panel is on chip, so n has no shared-memory cap.
+// L and X tiles are double-buffered with cp.async.  solve_few is bound by
+// the bytes of L: each panel's mat-vec has warps over rows and lanes over k
+// (forward), or threads over columns (backward), with coalesced reads and a
+// shuffle or shared-memory reduction.
 //
 // Singularity contract: a pivot that is <= 0 or not finite poisons the
 // whole instance: L and Dinv come back all NaN, as a failed
 // torch.linalg.cholesky_ex does in the plain version (the TPU kernel
 // clamped the pivot and returned finite garbage).  The solvers turn
-// NaN into a status code.
+// NaN into a status code.  The solve tests no pivot: a NaN L gives NaN x.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BP = 64;       // panel width
-constexpr int PITCH = BP + 1;
+constexpr int BP = 64;       // panel width (factor, solve)
 constexpr int NT = 256;      // threads per block
-constexpr int KC = 32;       // k-chunk of the assembly
+constexpr int AT = 128;      // assembly output tile
+constexpr int KC = 16;       // assembly k-chunk
+constexpr int STAGES = 3;    // assembly cp.async ring depth
+constexpr int FEW = 8;       // chol_solve: nrhs <= FEW takes solve_few
+
+template <typename T> struct Vec;   // 16 bytes of T
+template <> struct Vec<float> { using type = float4; };
+template <> struct Vec<double> { using type = double2; };
+template <typename T> constexpr int VW = 16 / sizeof(T);
+template <typename T> constexpr int APITCH = KC + VW<T>;   // assembly rows
+template <typename T> constexpr int TPITCH = BP + VW<T>;   // 64x64 tiles
+
+// Shared-memory bytes of each kernel; ops/fused_chol.py's launch_config
+// computes the same numbers and the launchers check that they agree.
+template <typename T> constexpr int SMEM_ASM =
+    (STAGES * 2 * AT * APITCH<T> + 2 * KC * (AT + VW<T>) + STAGES * KC) * sizeof(T);
+template <typename T> constexpr int SMEM_FAC = (3 * BP * TPITCH<T> + BP) * sizeof(T);
+template <typename T> constexpr int SMEM_MANY = 6 * BP * TPITCH<T> * sizeof(T);
+template <typename T> constexpr int SMEM_FEW = 17 * BP * sizeof(T);
 
 template <typename T> __device__ __forceinline__ T dsqrt(T x);
 template <> __device__ __forceinline__ float dsqrt<float>(float x) { return sqrtf(x); }
 template <> __device__ __forceinline__ double dsqrt<double>(double x) { return sqrt(x); }
+
+template <typename T> __device__ __forceinline__ T drsqrt(T x);
+template <> __device__ __forceinline__ float drsqrt<float>(float x) { return rsqrtf(x); }
+template <> __device__ __forceinline__ double drsqrt<double>(double x) { return rsqrt(x); }
 
 template <typename T> __device__ __forceinline__ T qnan();
 template <> __device__ __forceinline__ float qnan<float>() { return __int_as_float(0x7fc00000); }
@@ -63,200 +114,484 @@ template <> __device__ __forceinline__ double qnan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-// out[r][c] (+)= sum_k a[r*PITCH+k] * b[c*PITCH+k] over k < kmax, for
-// the 4x4 micro-tile r = tr + 16 i, c = tc + 16 j.
+// W = VW<T> consecutive elements at p (16-byte aligned) into v.
 template <typename T>
-__device__ __forceinline__ void tile_abt(const T* a, const T* b, int kmax,
-                                         int tr, int tc, T acc[4][4]) {
-  for (int k = 0; k < kmax; ++k) {
-    T av[4], bv[4];
+__device__ __forceinline__ void ld16(const T* p, T* v) {
+  const typename Vec<T>::type x = *reinterpret_cast<const typename Vec<T>::type*>(p);
+  if constexpr (sizeof(T) == 4) {
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    v[0] = x.x; v[1] = x.y;
+  }
+}
+
+// Four consecutive elements at p (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void ld4(const T* p, T* v) {
+  ld16(p, v);
+  if constexpr (sizeof(T) == 8) ld16(p + 2, v + 2);
+}
+
+// Four consecutive elements to p (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void st4(T* p, const T* v) {
+  using V16 = typename Vec<T>::type;
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<V16*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    reinterpret_cast<V16*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<V16*>(p)[1] = make_double2(v[2], v[3]);
+  }
+}
+
+// ---- cp.async ---------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16-byte copy; src_bytes < 16 zero-fills the rest of the destination.
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// One element (4 or 8 bytes); src_bytes = 0 writes a zero.
+template <int BYTES>
+__device__ __forceinline__ void cp_elem(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "n"(BYTES), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copy `rows` x `cols` elements of a row-major matrix (leading dimension
+// ld) into shared memory with row pitch `pitch`, by cp.async.  Source rows
+// >= nr and columns >= nc are zero-filled.  With `vec`, src rows are
+// 16-byte aligned and cols is a multiple of VW<T>: one 16-byte copy per
+// thread step; otherwise one element.  Thread `t` copies items t, t + NT,
+// ...; the assembly's dinv2 scaling walks the same items.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int pitch, const T* src,
+                                      long long ld, int rows, int cols,
+                                      int nr, int nc, bool vec) {
+  if (vec) {
+    constexpr int W = VW<T>;
+    const int cv = cols / W;
+    for (int idx = threadIdx.x; idx < rows * cv; idx += NT) {
+      const int r = idx / cv, c = (idx % cv) * W;
+      const int valid = r < nr ? max(0, min(W, nc - c)) : 0;
+      cp16(dst + r * pitch + c, valid ? src + r * ld + c : src,
+           valid * (int)sizeof(T));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
+      const int r = idx / cols, c = idx % cols;
+      const bool ok = r < nr && c < nc;
+      cp_elem<sizeof(T)>(dst + r * pitch + c, ok ? src + r * ld + c : src,
+                         ok ? (int)sizeof(T) : 0);
+    }
+  }
+}
+
+// ---- 64x64x64 tile products on 256 threads, 4x4 micro-tiles -----------
+// Thread (tr, tc) = (tid / 16, tid % 16).
+
+// acc[i][j] += sum_k a[(tr+16i)][k] b[(tc+16j)][k]   (A B')
+template <typename T>
+__device__ __forceinline__ void tile_abt(const T* a, const T* b, int tr,
+                                         int tc, T acc[4][4]) {
+  constexpr int W = VW<T>, P = TPITCH<T>;
+#pragma unroll 4
+  for (int k = 0; k < BP; k += W) {
+    T av[4][W], bv[4][W];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(tr + 16 * i) * PITCH + k];
+    for (int i = 0; i < 4; ++i) ld16(a + (tr + 16 * i) * P + k, av[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tc + 16 * j) * PITCH + k];
+    for (int j = 0; j < 4; ++j) ld16(b + (tc + 16 * j) * P + k, bv[j]);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[i][j] += av[i][w] * bv[j][w];
   }
 }
 
-// Stage a 64x64 tile of a row-major matrix (leading dimension ld) into
-// shared memory with pitch PITCH, as is (dst[r][c] = src[r][c]) or
-// transposed (dst[c][r] = src[r][c]); global reads are coalesced.
+// acc[i][j] += sum_k a[(tr+16i)][k] b[k][tc*4+j]   (A B), columns
+// tc*4 .. tc*4+3 of the output
 template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld,
-                                          bool transpose) {
-  for (int idx = threadIdx.x; idx < BP * BP; idx += NT) {
-    const int r = idx / BP, c = idx % BP;
-    const T v = src[r * ld + c];
-    if (transpose) dst[c * PITCH + r] = v; else dst[r * PITCH + c] = v;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-schur_chol_kernel(const T* __restrict__ P, long long p_bs,
-                  const T* __restrict__ Gt, long long gt_bs,
-                  const T* __restrict__ dinv2, long long d_bs,
-                  T* __restrict__ L, T* __restrict__ Dinv,
-                  T* __restrict__ deq, int n, int m) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sA = reinterpret_cast<T*>(smem_raw);
-  T* sB = sA + BP * PITCH;
-  T* sC = sB + BP * PITCH;
-  __shared__ int bad;
-
-  const long long b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int npan = n / BP;
-  P += b * p_bs;
-  Gt += b * gt_bs;
-  dinv2 += b * d_bs;
-  T* Lb = L + b * (long long)n * n;
-  T* Db = Dinv + b * (long long)npan * BP * BP;
-  T* dq = deq ? deq + b * n : nullptr;
-  if (tid == 0) bad = 0;
-
-  // ---- equilibration: deq_i = 1/sqrt(max(S_ii, 1e-30)), one warp/row
-  if (dq) {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int i = warp; i < n; i += NT / 32) {
-      const T* g = Gt + (long long)i * m;
-      T s = T(0);
-      for (int k = lane; k < m; k += 32) s += g[k] * g[k] * dinv2[k];
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        s += P[(long long)i * n + i];
-        const T f = (s != s) ? s : (s > T(1e-30) ? s : T(1e-30));
-        dq[i] = T(1) / dsqrt(f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- assembly of the lower tiles of S into L
-  // chunk buffers, k-major: sA[kk*PITCH + r] = Gt[I*64+r][k0+kk]*dinv2
-  for (int I = 0; I < npan; ++I) {
-    for (int J = 0; J <= I; ++J) {
-      T acc[4][4] = {};
-      for (int k0 = 0; k0 < m; k0 += KC) {
-        __syncthreads();
-        for (int idx = tid; idx < BP * KC; idx += NT) {
-          const int r = idx / KC, kk = idx % KC;
-          const int k = k0 + kk;
-          T ga = T(0), gb = T(0);
-          if (k < m) {
-            ga = Gt[(long long)(I * BP + r) * m + k] * dinv2[k];
-            gb = Gt[(long long)(J * BP + r) * m + k];
-          }
-          sA[kk * PITCH + r] = ga;
-          sB[kk * PITCH + r] = gb;
-        }
-        __syncthreads();
-        const int kmax = min(KC, m - k0);
-        for (int kk = 0; kk < kmax; ++kk) {
-          T av[4], bv[4];
+__device__ __forceinline__ void tile_ab(const T* a, const T* b, int tr,
+                                        int tc, T acc[4][4]) {
+  constexpr int W = VW<T>, P = TPITCH<T>;
+#pragma unroll 4
+  for (int k = 0; k < BP; k += W) {
+    T av[4][W];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) av[i] = sA[kk * PITCH + tr + 16 * i];
+    for (int i = 0; i < 4; ++i) ld16(a + (tr + 16 * i) * P + k, av[i]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = sB[kk * PITCH + tc + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = I * BP + tr + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = J * BP + tc + 16 * j;
-          T v = acc[i][j] + P[(long long)row * n + col];
-          if (dq) v = v * dq[row] * dq[col];
-          Lb[(long long)row * n + col] = v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- blocked right-looking Cholesky, in place in Lb
-  for (int jp = 0; jp < npan; ++jp) {
-    const int o = jp * BP;
-    T* diag = Lb + (long long)o * n + o;
-    load_tile(sA, diag, n, false);
-    __syncthreads();
-    // unblocked Cholesky of the diagonal block (lower triangle)
-    for (int k = 0; k < BP; ++k) {
-      T akk = sA[k * PITCH + k];
-      if (!(akk > T(0)) || isinf(akk)) {
-        akk = qnan<T>();
-        if (tid == 0) bad = 1;
-      }
-      const T lkk = dsqrt(akk);
-      __syncthreads();   // every thread has read the pivot
-      if (tid == 0) sA[k * PITCH + k] = lkk;
-      for (int i = k + 1 + tid; i < BP; i += NT) sA[i * PITCH + k] /= lkk;
-      __syncthreads();
-      for (int idx = tid; idx < BP * BP; idx += NT) {
-        const int i = idx / BP, j = idx % BP;
-        if (j > k && i >= j) sA[i * PITCH + j] -= sA[i * PITCH + k] * sA[j * PITCH + k];
-      }
-      __syncthreads();
-    }
-    if (bad) break;    // block-uniform: read after a barrier
-    // triangular inverse of L11, one column per thread
-    if (tid < BP) {
-      const int c = tid;
-      for (int i = 0; i < BP; ++i) {
-        if (i < c) { sB[i * PITCH + c] = T(0); continue; }
-        T s = (i == c) ? T(1) : T(0);
-        for (int k = c; k < i; ++k) s -= sA[i * PITCH + k] * sB[k * PITCH + c];
-        sB[i * PITCH + c] = s / sA[i * PITCH + i];
-      }
-    }
-    __syncthreads();
-    T* Dj = Db + (long long)jp * BP * BP;
-    for (int idx = tid; idx < BP * BP; idx += NT) {
-      const int r = idx / BP, c = idx % BP;
-      diag[(long long)r * n + c] = (r >= c) ? sA[r * PITCH + c] : T(0);
-      Dj[idx] = sB[r * PITCH + c];
-    }
-    // L21 = A21 Linv11', tile by tile (sB = Linv11)
-    for (int I = jp + 1; I < npan; ++I) {
-      T* a21 = Lb + (long long)(I * BP) * n + o;
-      __syncthreads();
-      load_tile(sC, a21, n, false);
-      __syncthreads();
-      T acc[4][4] = {};
-      tile_abt(sC, sB, BP, tr, tc, acc);
+    for (int w = 0; w < W; ++w) {
+      T bv[4];
+      ld4(b + (k + w) * P + tc * 4, bv);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          a21[(long long)(tr + 16 * i) * n + tc + 16 * j] = acc[i][j];
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i][w] * bv[j];
+    }
+  }
+}
+
+// ---- schur_assemble ---------------------------------------------------
+
+// Lower tile t = 0, 1, 2, ... of a triangle of 128-wide tiles, row-major:
+// (0,0), (1,0), (1,1), (2,0), ...
+__device__ __forceinline__ void tri_tile(int t, int& I, int& J) {
+  I = 0;
+  while (t > I) { t -= I + 1; ++I; }
+  J = t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 2 : 1)
+schur_assemble_kernel(const T* __restrict__ P, long long p_bs,
+                      const T* __restrict__ Gt, long long gt_bs,
+                      const T* __restrict__ dinv2, long long d_bs,
+                      T* __restrict__ L, int B, int n, int m, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int PA = APITCH<T>, PT = AT + VW<T>;
+  T* ring = reinterpret_cast<T*>(smem_raw);   // STAGES x {A, B} x AT x PA
+  T* kmaj = ring + STAGES * 2 * AT * PA;      // {A, B} x KC x PT
+  T* dring = kmaj + 2 * KC * PT;              // STAGES x KC: dinv2
+
+  // consecutive blocks take one tile of consecutive instances, so a
+  // shared Gt's chunks are read from L2 by many blocks at once
+  const long long b = blockIdx.x % B;
+  int I, J;
+  tri_tile(blockIdx.x / B, I, J);
+  const int r0 = I * AT, c0 = J * AT;
+  const int nrA = min(AT, n - r0), nrB = min(AT, n - c0);
+  const T* gA = Gt + b * gt_bs + (long long)r0 * m;
+  const T* gB = Gt + b * gt_bs + (long long)c0 * m;
+  const T* d2 = dinv2 + b * d_bs;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const bool diag = I == J;
+  const int nchunk = (m + KC - 1) / KC;
+
+  auto raw = [&](int c, int side) { return ring + (2 * (c % STAGES) + side) * AT * PA; };
+  auto fetch = [&](int c) {
+    if (c < nchunk) {
+      const int k0 = c * KC;
+      stage(raw(c, 0), PA, gA + k0, m, AT, KC, nrA, m - k0, vec);
+      stage(raw(c, 1), PA, gB + k0, m, AT, KC, nrB, m - k0, vec);
+      stage(dring + (c % STAGES) * KC, KC, d2 + k0, 0, 1, KC, 1, m - k0, vec);
+    }
+    cp_commit();
+  };
+  // Chunk c k-major, A times dinv2: thread t < 128 moves the 4x4 block
+  // (rows 4 (t / 4) .., k 4 (t % 4) ..) of A, thread t >= 128 that of B,
+  // with 16-byte reads and writes (conflict-free reads at pitch PA).
+  auto transpose = [&](int c) {
+    const int side = tid / 128, t = tid % 128;
+    const int r = (t / 4) * 4, k = (t % 4) * 4;
+    const T* src = raw(c, side) + r * PA + k;
+    T v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld4(src + i * PA, v[i]);
+    if (side == 0) {
+      T dv[4];
+      ld4(dring + (c % STAGES) * KC + k, dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[i][j] *= dv[j];
+    }
+    T* dst = kmaj + side * KC * PT + k * PT + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const T w[4] = {v[0][j], v[1][j], v[2][j], v[3][j]};
+      st4(dst + j * PT, w);
+    }
+  };
+
+  // thread rows (and columns) tr*4 + i and 64 + tr*4 + i, i < 4; the
+  // block (i < 4, j >= 4) of a diagonal tile lies above the diagonal
+  T acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
+
+  for (int c = 0; c < STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < nchunk; ++c) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();      // chunk c has landed; chunk c-1 is used up
+    fetch(c + STAGES - 1);
+    transpose(c);
+    __syncthreads();      // chunk c is k-major
+    const T* a = kmaj;
+    const T* bb = kmaj + KC * PT;
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      T av[8], bv[8];
+      ld4(a + k * PT + tr * 4, av);
+      ld4(a + k * PT + 64 + tr * 4, av + 4);
+      ld4(bb + k * PT + tc * 4, bv);
+      ld4(bb + k * PT + 64 + tc * 4, bv + 4);
+      if (diag) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < (i < 4 ? 4 : 8); ++j) acc[i][j] += av[i] * bv[j];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
+      }
+    }
+  }
+  cp_wait<0>();
+
+  const T* Pb = P + b * p_bs;
+  T* Lb = L + b * (long long)n * n;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i < 4 ? 0 : 64) + tr * 4 + i % 4;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + (j < 4 ? 0 : 64) + tc * 4 + j % 4;
+      if (col >= n || (diag && i < 4 && j >= 4)) continue;
+      const long long e = (long long)row * n + col;
+      Lb[e] = acc[i][j] + Pb[e];
+    }
+  }
+}
+
+// ---- schur_factor -----------------------------------------------------
+
+// One level of the blocked triangular inverse of the 64x64 lower L in
+// sL (strict upper zero): for each 2H-block, X21 = -C^-1 (B A^-1) with
+// A^-1 and C^-1 already in sLi (zero above their diagonals); sX holds
+// B A^-1.  Full-length dots: the zeros make them exact.
+template <int H, typename T>
+__device__ __forceinline__ void inv_level(const T* sL, T* sLi, T* sX) {
+  constexpr int P = TPITCH<T>, NE = BP / 2 * H;
+  for (int e = threadIdx.x; e < NE; e += NT) {
+    const int base = e / (H * H) * 2 * H, r = e / H % H, c = e % H;
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+      s += sL[(base + H + r) * P + base + k] * sLi[(base + k) * P + base + c];
+    sX[(base + H + r) * P + base + c] = s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < NE; e += NT) {
+    const int base = e / (H * H) * 2 * H, r = e / H % H, c = e % H;
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < H; ++k)
+      s += sLi[(base + H + r) * P + base + H + k] * sX[(base + H + k) * P + base + c];
+    sLi[(base + H + r) * P + base + c] = -s;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
+schur_factor_kernel(T* __restrict__ L, T* __restrict__ Dinv,
+                    T* __restrict__ deq, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = TPITCH<T>, W = VW<T>;
+  T* sL = reinterpret_cast<T*>(smem_raw);   // L11, then the L21[J] operand
+  T* sLi = sL + BP * P;                     // inv(L11)
+  T* sX = sLi + BP * P;                     // A21 -> L21[I]; inverse scratch
+  T* sRd = sX + BP * P;                     // 1 / diag(L11)
+
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int npan = n / BP;
+  T* Lb = L + b * (long long)n * n;
+  T* Db = Dinv + b * (long long)npan * BP * BP;
+  T* dq = deq ? deq + b * n : nullptr;
+
+  // ---- equilibration: deq_i = 1/sqrt(max(S_ii, 1e-30)), NaN stays NaN
+  if (dq) {
+    for (int i = tid; i < n; i += NT) {
+      const T s = Lb[(long long)i * n + i];
+      const T f = (s != s) ? s : (s > T(1e-30) ? s : T(1e-30));
+      dq[i] = T(1) / dsqrt(f);
     }
     __syncthreads();
-    // trailing update of the lower tiles: S[I,J] -= L21[I] L21[J]'
-    for (int I = jp + 1; I < npan; ++I) {
+    for (int I = 0; I < npan; ++I)
+      for (int J = 0; J <= I; ++J)
+        for (int idx = tid; idx < BP * BP; idx += NT) {
+          const int r = I * BP + idx / BP, c = J * BP + idx % BP;
+          T* p = Lb + (long long)r * n + c;
+          *p = *p * dq[r] * dq[c];
+        }
+    __syncthreads();
+  }
+
+  __shared__ int sbad;
+  if (tid == 0) sbad = 0;
+  bool bad = false;
+  const int warp = tid / 32, lane = tid % 32;
+  for (int jp = 0; jp < npan; ++jp) {
+    const int o = jp * BP;
+    T* Ld = Lb + (long long)o * n + o;
+    for (int idx = tid; idx < BP * BP; idx += NT)
+      sL[idx / BP * P + idx % BP] = Ld[(long long)(idx / BP) * n + idx % BP];
+    __syncthreads();
+
+    // ---- Cholesky of the diagonal block by 16-column sub-panels q
+    for (int q = 0; q < BP; q += 16) {
+      // (a) the sub-panel's columns minus the sub-panels to their left
+      if (q > 0) {
+        for (int e = tid; e < (BP - q) * 16; e += NT) {
+          const int i = q + e / 16, c = q + e % 16;
+          if (i < c) continue;
+          T s = T(0);
+          for (int k = 0; k < q; k += W) {
+            T u[W], v[W];
+            ld16(sL + i * P + k, u);
+            ld16(sL + c * P + k, v);
+#pragma unroll
+            for (int w = 0; w < W; ++w) s += u[w] * v[w];
+          }
+          sL[i * P + c] -= s;
+        }
+        __syncthreads();
+      }
+      // (b) its 16x16 diagonal block in warp 0, lane i holding row i; the
+      // pivot and the columns travel by shuffle
+      if (warp == 0) {
+        const int i = lane % 16;
+        T d[16], rd = T(0);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) d[j] = j <= i ? sL[(q + i) * P + q + j] : T(0);
+        bool badp = false;
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const T akk = __shfl_sync(0xffffffffu, d[k], k);
+          badp |= !(akk > T(0)) || isinf(akk);
+          const T inv = drsqrt(akk);
+          if (i == k) { d[k] = akk * inv; rd = inv; }
+          else if (i > k) d[k] *= inv;
+#pragma unroll
+          for (int j = k + 1; j < 16; ++j) {
+            const T ljk = __shfl_sync(0xffffffffu, d[k], j);
+            if (i >= j) d[j] -= d[k] * ljk;
+          }
+        }
+        if (lane < 16) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) sL[(q + i) * P + q + j] = j <= i ? d[j] : T(0);
+          sRd[q + i] = rd;
+        }
+        if (lane == 0 && badp) sbad = 1;
+      }
       __syncthreads();
-      load_tile(sA, Lb + (long long)(I * BP) * n + o, n, false);
+      // (c) the rows below it: x D' = a by forward substitution
+      for (int i = q + 16 + tid; i < BP; i += NT) {
+        T x[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          T s = sL[i * P + q + k];
+#pragma unroll
+          for (int j = 0; j < k; ++j) s -= x[j] * sL[(q + k) * P + q + j];
+          x[k] = s * sRd[q + k];
+        }
+#pragma unroll
+        for (int k = 0; k < 16; ++k) sL[i * P + q + k] = x[k];
+      }
+      __syncthreads();
+    }
+    if (sbad) { bad = true; break; }       // uniform: read after a barrier
+    for (int idx = tid; idx < BP * P; idx += NT) {
+      sLi[idx] = T(0);
+      if (idx % P > idx / P) sL[idx] = T(0);   // strictly upper (and pad)
+    }
+    __syncthreads();
+
+    // ---- inv(L11) by blocked 2x2 recursion: 8x8 diagonal blocks, then
+    // X21 = -C^-1 (B A^-1) for h = 8, 16, 32 (A^-1, C^-1 already in sLi)
+    if (tid < BP) {
+      const int base = (tid / 8) * 8, c = tid % 8;
+      T x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        T s = (i == c) ? T(1) : T(0);
+#pragma unroll
+        for (int j = 0; j < i; ++j) s -= sL[(base + i) * P + base + j] * x[j];
+        x[i] = i < c ? T(0) : s * sRd[base + i];
+        sLi[(base + i) * P + base + c] = x[i];
+      }
+    }
+    __syncthreads();
+    inv_level<8>(sL, sLi, sX);
+    inv_level<16>(sL, sLi, sX);
+    inv_level<32>(sL, sLi, sX);
+    T* Dj = Db + (long long)jp * BP * BP;
+    for (int idx = tid; idx < BP * BP; idx += NT) {
+      const int r = idx / BP, c = idx % BP;
+      Ld[(long long)r * n + c] = sL[r * P + c];
+      Dj[idx] = sLi[r * P + c];
+    }
+
+    // ---- L21[I] = A21[I] inv(L11)', then S[I, J] -= L21[I] L21[J]'
+    for (int I = jp + 1; I < npan; ++I) {
+      T* aI = Lb + (long long)(I * BP) * n + o;
+      __syncthreads();                     // sX and sL are free
+      stage(sX, P, aI, n, BP, BP, BP, BP, true);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      T acc[4][4] = {};
+      tile_abt(sX, sLi, tr, tc, acc);
+      __syncthreads();                     // A21 is read
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tr + 16 * i, c = tc + 16 * j;
+          sX[r * P + c] = acc[i][j];
+          aI[(long long)r * n + c] = acc[i][j];
+        }
+      __threadfence();                     // L21[I] is read back by cp.async
+      __syncthreads();
       for (int J = jp + 1; J <= I; ++J) {
-        __syncthreads();
-        load_tile(sC, Lb + (long long)(J * BP) * n + o, n, false);
-        __syncthreads();
-        T acc[4][4] = {};
-        tile_abt(sA, sC, BP, tr, tc, acc);
+        const T* lJ = sX;
+        if (J < I) {
+          stage(sL, P, Lb + (long long)(J * BP) * n + o, n, BP, BP, BP, BP,
+                true);
+          cp_commit();
+          cp_wait<0>();
+          __syncthreads();
+          lJ = sL;
+        }
+        // S[I, J] is read before the product, so its latency overlaps
         T* sij = Lb + (long long)(I * BP) * n + J * BP;
+        T up[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            sij[(long long)(tr + 16 * i) * n + tc + 16 * j] -= acc[i][j];
+            up[i][j] = -sij[(long long)(tr + 16 * i) * n + tc + 16 * j];
+        tile_abt(sX, lJ, tr, tc, up);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            sij[(long long)(tr + 16 * i) * n + tc + 16 * j] = -up[i][j];
+        __syncthreads();                   // sL is free again
       }
     }
     __syncthreads();
@@ -269,125 +604,307 @@ schur_chol_kernel(const T* __restrict__ P, long long p_bs,
     for (long long idx = tid; idx < (long long)npan * BP * BP; idx += NT) Db[idx] = nan;
     return;
   }
-  // zero the strictly upper tiles
+  // zero the strictly upper tiles (the diagonal blocks' upper halves are
+  // written as zeros above)
   for (int I = 0; I < npan; ++I)
     for (int J = I + 1; J < npan; ++J)
       for (int idx = tid; idx < BP * BP; idx += NT)
         Lb[(long long)(I * BP + idx / BP) * n + J * BP + idx % BP] = T(0);
 }
 
-// x = (L L')^{-1} b for R right-hand-side rows per block.
-// sY holds y (forward) and then x (backward) for the block's rows.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-chol_solve_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
-                  const T* __restrict__ Bm, long long b_bs,
-                  T* __restrict__ X, int n, int nrhs, int R) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sT = reinterpret_cast<T*>(smem_raw);   // BP * PITCH
-  T* sAcc = sT + BP * PITCH;                 // R * BP
-  T* sY = sAcc + R * BP;                     // R * n
+// ---- chol_solve -------------------------------------------------------
 
-  const long long b = blockIdx.x;
-  const int r0 = blockIdx.y * R;
-  const int rows = min(R, nrhs - r0);
-  const int tid = threadIdx.x;
+template <typename T>
+__device__ __forceinline__ T warp_sum(T s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// nrhs > FEW: one block per (instance, 64 rows of b).  L, Dinv and X are
+// 16-byte aligned (the wrapper sees to it).
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+solve_many_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
+                  const T* __restrict__ Bm, long long b_bs, T* X, int n,
+                  int nrhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = TPITCH<T>;
+  T* sbuf = reinterpret_cast<T*>(smem_raw);   // 2 stages x {X rows, L tile}
+  T* sAcc = sbuf + 4 * BP * P;
+  T* sD = sAcc + BP * P;                      // Dinv[jp], copied ahead
+  const int nblk = (nrhs + BP - 1) / BP;
+  const long long b = blockIdx.x / nblk;
+  const int r0 = (blockIdx.x % nblk) * BP;
+  const int nr = min(BP, nrhs - r0);
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
   const int npan = n / BP;
   const T* Lb = L + b * (long long)n * n;
   const T* Db = Dinv + b * (long long)npan * BP * BP;
   const T* Bb = Bm + b * b_bs + (long long)r0 * n;
-  T* Xb = X + b * (long long)nrhs * n + (long long)r0 * n;
+  T* Xb = X + (b * nrhs + r0) * (long long)n;
+  auto sA = [&](int s) { return sbuf + 2 * s * BP * P; };
+  auto sB = [&](int s) { return sbuf + (2 * s + 1) * BP * P; };
 
-  // forward: y_j = (b_j - y[:, :o] L[o:o+64, :o]') Dinv[j]'
+  // forward, A B' layout (rows tr + 16 i, cols tc + 16 j):
+  // acc = -(b_j - sum_kt Y[:, kt] L[o, kt]'), y_j = (-acc) Dinv[j]'
   for (int jp = 0; jp < npan; ++jp) {
     const int o = jp * BP;
-    for (int idx = tid; idx < rows * BP; idx += NT)
-      sAcc[idx] = Bb[(long long)(idx / BP) * n + o + idx % BP];
-    for (int kt = 0; kt < jp; ++kt) {
-      __syncthreads();
-      load_tile(sT, Lb + (long long)o * n + kt * BP, n, false);  // sT[c][k] = L[o+c][k0+k]
-      __syncthreads();
-      for (int idx = tid; idx < rows * BP; idx += NT) {
-        const int r = idx / BP, c = idx % BP;
-        const T* y = sY + r * n + kt * BP;
-        T s = T(0);
-        for (int k = 0; k < BP; ++k) s += y[k] * sT[c * PITCH + k];
-        sAcc[idx] -= s;
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tr + 16 * i;
+        acc[i][j] = r < nr ? -Bb[(long long)r * n + o + tc + 16 * j] : T(0);
       }
+    auto fetch = [&](int kt) {
+      if (kt < jp) {
+        stage(sA(kt & 1), P, Xb + kt * BP, n, BP, BP, nr, BP, true);
+        stage(sB(kt & 1), P, Lb + (long long)o * n + kt * BP, n, BP, BP, BP,
+              BP, true);
+      }
+      cp_commit();
+    };
+    stage(sD, P, Db + (long long)jp * BP * BP, BP, BP, BP, BP, BP, true);
+    fetch(0);                             // Dinv[jp] rides with this group
+    for (int kt = 0; kt < jp; ++kt) {
+      fetch(kt + 1);
+      cp_wait<1>();
+      __syncthreads();
+      tile_abt(sA(kt & 1), sB(kt & 1), tr, tc, acc);
+      __syncthreads();
     }
+    cp_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sAcc[(tr + 16 * i) * P + tc + 16 * j] = -acc[i][j];
     __syncthreads();
-    load_tile(sT, Db + (long long)jp * BP * BP, BP, false);       // sT[c][k] = Dinv[c][k]
-    __syncthreads();
-    for (int idx = tid; idx < rows * BP; idx += NT) {
-      const int r = idx / BP, c = idx % BP;
-      T s = T(0);
-      for (int k = 0; k <= c; ++k) s += sAcc[r * BP + k] * sT[c * PITCH + k];
-      sY[r * n + o + c] = s;
+    T y[4][4] = {};
+    tile_abt(sAcc, sD, tr, tc, y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr + 16 * i;
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Xb[(long long)r * n + o + tc + 16 * j] = y[i][j];
     }
+    __threadfence();                      // y_j is read back by cp.async
     __syncthreads();
   }
-  // backward: x_j = (y_j - x[:, o+64:] L[o+64:, o:o+64]) Dinv[j]
+
+  // backward, A B layout (rows tr + 16 i, cols tc * 4 + j):
+  // acc = -(y_j - sum_kt X[:, kt] L[kt, o]), x_j = (-acc) Dinv[j]
   for (int jp = npan - 1; jp >= 0; --jp) {
     const int o = jp * BP;
-    for (int idx = tid; idx < rows * BP; idx += NT)
-      sAcc[idx] = sY[(idx / BP) * n + o + idx % BP];
-    for (int kt = jp + 1; kt < npan; ++kt) {
-      __syncthreads();
-      load_tile(sT, Lb + (long long)(kt * BP) * n + o, n, true);  // sT[c][k] = L[k0+k][o+c]
-      __syncthreads();
-      for (int idx = tid; idx < rows * BP; idx += NT) {
-        const int r = idx / BP, c = idx % BP;
-        const T* x = sY + r * n + kt * BP;
-        T s = T(0);
-        for (int k = 0; k < BP; ++k) s += x[k] * sT[c * PITCH + k];
-        sAcc[idx] -= s;
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tr + 16 * i;
+        acc[i][j] = r < nr ? -Xb[(long long)r * n + o + tc * 4 + j] : T(0);
       }
+    auto fetch = [&](int kt) {
+      if (kt < npan) {
+        const int s = (kt - jp - 1) & 1;
+        stage(sA(s), P, Xb + kt * BP, n, BP, BP, nr, BP, true);
+        stage(sB(s), P, Lb + (long long)(kt * BP) * n + o, n, BP, BP, BP, BP,
+              true);
+      }
+      cp_commit();
+    };
+    stage(sD, P, Db + (long long)jp * BP * BP, BP, BP, BP, BP, BP, true);
+    fetch(jp + 1);                        // Dinv[jp] rides with this group
+    for (int kt = jp + 1; kt < npan; ++kt) {
+      fetch(kt + 1);
+      cp_wait<1>();
+      __syncthreads();
+      const int s = (kt - jp - 1) & 1;
+      tile_ab(sA(s), sB(s), tr, tc, acc);
+      __syncthreads();
+    }
+    cp_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sAcc[(tr + 16 * i) * P + tc * 4 + j] = -acc[i][j];
+    __syncthreads();
+    T x[4][4] = {};
+    tile_ab(sAcc, sD, tr, tc, x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr + 16 * i;
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Xb[(long long)r * n + o + tc * 4 + j] = x[i][j];
+    }
+    __threadfence();
+    __syncthreads();
+  }
+}
+
+// part[g][c0 .. c0+3] = sum over k = k0 + g, k0 + g + 16, ... < k1 of
+// v[k] M[k][c0 ..], for c0 = (tid % 16) * 4, g = tid / 16: each k row of M
+// is read as 64 contiguous elements.
+template <typename T>
+__device__ __forceinline__ void col_partials(const T* M, long long ld,
+                                             const T* v, int k0, int k1,
+                                             T* part) {
+  const int c0 = (threadIdx.x % 16) * 4, g = threadIdx.x / 16;
+  T s[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll 8
+  for (int k = k0 + g; k < k1; k += 16) {
+    T mv[4];
+    ld4(M + k * ld + c0, mv);
+    const T vk = v[k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += vk * mv[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) part[g * BP + c0 + j] = s[j];
+}
+
+// out[c] = sum_k M[c][k] v[k] for the 64 rows c of M, k < K; warp w takes
+// rows 8 w .. 8 w + 7, lanes take 16-byte pieces of k.  Lane 0 holds the
+// sums in s.
+template <typename T>
+__device__ __forceinline__ void row_dots(const T* M, long long ld,
+                                         const T* v, int K, T s[8]) {
+  constexpr int W = VW<T>;
+  const int lane = threadIdx.x % 32, w8 = threadIdx.x / 32 * 8;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) s[r] = T(0);
+#pragma unroll 2
+  for (int k = lane * W; k < K; k += 32 * W) {
+    T vk[W];
+    ld16(v + k, vk);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      T mv[W];
+      ld16(M + (w8 + r) * ld + k, mv);
+#pragma unroll
+      for (int q = 0; q < W; ++q) s[r] += mv[q] * vk[q];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) s[r] = warp_sum(s[r]);
+}
+
+// nrhs <= FEW: one block per (instance, row of b); bound by L's bytes.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+solve_few_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
+                 const T* __restrict__ Bm, long long b_bs, T* X, int n,
+                 int nrhs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sv = reinterpret_cast<T*>(smem_raw);   // 64: the panel's right side
+  T* part = sv + BP;                        // 16 x 64 partial sums
+  const long long b = blockIdx.x / nrhs;
+  const int row = blockIdx.x % nrhs;
+  const int tid = threadIdx.x, lane = tid % 32, w8 = tid / 32 * 8;
+  const int npan = n / BP;
+  const T* Lb = L + b * (long long)n * n;
+  const T* Db = Dinv + b * (long long)npan * BP * BP;
+  const T* bv = Bm + b * b_bs + (long long)row * n;
+  T* x = X + (b * nrhs + row) * (long long)n;
+
+  // forward: y_j = (b_j - L[o:o+64, :o] y[:o]) Dinv[j]'
+  for (int jp = 0; jp < npan; ++jp) {
+    const int o = jp * BP;
+    T s[8];
+    row_dots(Lb + (long long)o * n, n, x, o, s);
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) sv[w8 + r] = bv[o + w8 + r] - s[r];
+    __syncthreads();
+    row_dots(Db + (long long)jp * BP * BP, BP, sv, BP, s);
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[o + w8 + r] = s[r];
+    __syncthreads();
+  }
+  // backward: x_j = (y_j - L[o+64:, o:o+64]' x[o+64:]) Dinv[j]
+  for (int jp = npan - 1; jp >= 0; --jp) {
+    const int o = jp * BP;
+    col_partials(Lb + o, n, x, o + BP, n, part);
+    __syncthreads();
+    if (tid < BP) {
+      T s = T(0);
+      for (int g = 0; g < 16; ++g) s += part[g * BP + tid];
+      sv[tid] = x[o + tid] - s;
     }
     __syncthreads();
-    load_tile(sT, Db + (long long)jp * BP * BP, BP, true);        // sT[c][k] = Dinv[k][c]
+    col_partials(Db + (long long)jp * BP * BP, BP, sv, 0, BP, part);
     __syncthreads();
-    for (int idx = tid; idx < rows * BP; idx += NT) {
-      const int r = idx / BP, c = idx % BP;
+    if (tid < BP) {
       T s = T(0);
-      for (int k = c; k < BP; ++k) s += sAcc[r * BP + k] * sT[c * PITCH + k];
-      sY[r * n + o + c] = s;
+      for (int g = 0; g < 16; ++g) s += part[g * BP + tid];
+      x[o + tid] = s;
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < rows * n; idx += NT)
-    Xb[(long long)(idx / n) * n + idx % n] = sY[idx];
+}
+
+// ---- launches ---------------------------------------------------------
+
+template <typename K>
+cudaError_t set_smem(K kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// launch_config disagrees with the kernel's own layout
+constexpr int ERR_LAYOUT = -2;
+
+template <typename T>
+int launch_schur_assemble(const void* P, long long p_bs, const void* Gt,
+                          long long gt_bs, const void* dinv2, long long d_bs,
+                          void* L, int B, int n, int m, int vec, int smem,
+                          void* stream) {
+  if (B == 0) return 0;
+  if (smem != SMEM_ASM<T>) return ERR_LAYOUT;
+  cudaError_t e = set_smem(schur_assemble_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int t = (n + AT - 1) / AT;
+  const long long grid = (long long)B * (t * (t + 1) / 2);
+  schur_assemble_kernel<T><<<(unsigned)grid, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)P, p_bs, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs, (T*)L,
+      B, n, m, vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_schur_chol(const void* P, long long p_bs, const void* Gt,
-                      long long gt_bs, const void* dinv2, long long d_bs,
-                      void* L, void* Dinv, void* deq, int B, int n, int m,
-                      void* stream) {
+int launch_schur_factor(void* L, void* Dinv, void* deq, int B, int n,
+                        int smem, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = 3 * BP * PITCH * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      schur_chol_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (smem != SMEM_FAC<T>) return ERR_LAYOUT;
+  cudaError_t e = set_smem(schur_factor_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
-  schur_chol_kernel<T><<<B, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)P, p_bs, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs,
-      (T*)L, (T*)Dinv, (T*)deq, n, m);
+  schur_factor_kernel<T><<<B, NT, smem, (cudaStream_t)stream>>>(
+      (T*)L, (T*)Dinv, (T*)deq, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_chol_solve(const void* L, const void* Dinv, const void* Bm,
                       long long b_bs, void* X, int B, int n, int nrhs,
-                      int R, void* stream) {
+                      int smem, void* stream) {
   if (B == 0 || nrhs == 0) return 0;
-  const size_t smem = (BP * PITCH + (size_t)R * BP + (size_t)R * n) * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      chol_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const bool few = nrhs <= FEW;
+  if (smem != (few ? SMEM_FEW<T> : SMEM_MANY<T>)) return ERR_LAYOUT;
+  cudaError_t e = few ? set_smem(solve_few_kernel<T>, smem)
+                      : set_smem(solve_many_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B, (nrhs + R - 1) / R);
-  chol_solve_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs, R);
+  if (few) {
+    solve_few_kernel<T><<<(unsigned)((long long)B * nrhs), NT, smem,
+                          (cudaStream_t)stream>>>(
+        (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs);
+  } else {
+    const long long grid = (long long)B * ((nrhs + BP - 1) / BP);
+    solve_many_kernel<T><<<(unsigned)grid, NT, smem, (cudaStream_t)stream>>>(
+        (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -395,38 +912,32 @@ int launch_chol_solve(const void* L, const void* Dinv, const void* Bm,
 
 extern "C" {
 
-int schur_chol_f32(const void* P, long long p_bs, const void* Gt,
-                   long long gt_bs, const void* dinv2, long long d_bs,
-                   void* L, void* Dinv, void* deq, int B, int n, int m,
-                   void* stream) {
-  return launch_schur_chol<float>(P, p_bs, Gt, gt_bs, dinv2, d_bs, L, Dinv,
-                                  deq, B, n, m, stream);
-}
+#define FUSED_CHOL_EXPORTS(T, SFX)                                            \
+  int schur_assemble_##SFX(const void* P, long long p_bs, const void* Gt,     \
+                           long long gt_bs, const void* dinv2,                \
+                           long long d_bs, void* L, int B, int n, int m,      \
+                           int vec, int smem, void* stream) {                 \
+    return launch_schur_assemble<T>(P, p_bs, Gt, gt_bs, dinv2, d_bs, L, B,    \
+                                    n, m, vec, smem, stream);                 \
+  }                                                                           \
+  int schur_factor_##SFX(void* L, void* Dinv, void* deq, int B, int n,        \
+                         int smem, void* stream) {                            \
+    return launch_schur_factor<T>(L, Dinv, deq, B, n, smem, stream);          \
+  }                                                                           \
+  int chol_solve_##SFX(const void* L, const void* Dinv, const void* Bm,       \
+                       long long b_bs, void* X, int B, int n, int nrhs,       \
+                       int smem, void* stream) {                              \
+    return launch_chol_solve<T>(L, Dinv, Bm, b_bs, X, B, n, nrhs, smem,       \
+                                stream);                                      \
+  }
 
-int schur_chol_f64(const void* P, long long p_bs, const void* Gt,
-                   long long gt_bs, const void* dinv2, long long d_bs,
-                   void* L, void* Dinv, void* deq, int B, int n, int m,
-                   void* stream) {
-  return launch_schur_chol<double>(P, p_bs, Gt, gt_bs, dinv2, d_bs, L, Dinv,
-                                   deq, B, n, m, stream);
-}
+FUSED_CHOL_EXPORTS(float, f32)
+FUSED_CHOL_EXPORTS(double, f64)
 
 // Shared memory a block of `device` may opt in to, in bytes.
 int smem_optin(int device, int* bytes) {
   return (int)cudaDeviceGetAttribute(
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-}
-
-int chol_solve_f32(const void* L, const void* Dinv, const void* Bm,
-                   long long b_bs, void* X, int B, int n, int nrhs, int R,
-                   void* stream) {
-  return launch_chol_solve<float>(L, Dinv, Bm, b_bs, X, B, n, nrhs, R, stream);
-}
-
-int chol_solve_f64(const void* L, const void* Dinv, const void* Bm,
-                   long long b_bs, void* X, int B, int n, int nrhs, int R,
-                   void* stream) {
-  return launch_chol_solve<double>(L, Dinv, Bm, b_bs, X, B, n, nrhs, R, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,10 @@ KKT layer pads.
 
 A wrapper given CPU tensors (with ``device="cpu"``) computes the plain
 version; given CUDA tensors it launches its kernel or raises.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its calls that launch on the card in
+``<wrapper>.launches``; one call of a factor wrapper launches two device
+kernels (schur_assemble, then schur_factor) and counts one.
+`launch_config` gives each call's grids and shared memory.
 
 A pivot <= 0 or not finite poisons the whole instance with NaN, in the
 kernels and the plain versions alike; the solvers read NaN as a
@@ -38,7 +41,6 @@ import torch
 from cvxopt_tpu_torch._device import resolve_device, check_on
 
 BP = 64          # panel width
-SOLVE_ROWS = 16  # right-hand-side rows per chol_solve block
 
 _DTYPES = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -92,6 +94,59 @@ def fused_cholesky_solve_batched_ref(L, Dinv, B_rows):
 
 # ---- kernel launches ---------------------------------------------------
 
+ASM_TILE = 128    # schur_assemble output tile
+ASM_KC = 16       # schur_assemble k-chunk
+ASM_STAGES = 3    # schur_assemble cp.async ring depth
+FEW_RHS = 8       # chol_solve: nrhs <= FEW_RHS takes the mat-vec kernel
+_ERR_LAYOUT = -2  # a launcher's return: launch_config disagrees with it
+
+
+def launch_config(kind, B, n, m_or_nrhs, esize, smem):
+    """The device launches of one wrapper call, as csrc/fused_chol.cu lays
+    them out: a list of dicts with the kernel's name, its grid (blocks of
+    256 threads), its output tile and its dynamic shared memory in bytes.
+
+    kind "factor" (m_or_nrhs = m): schur_assemble, one block per
+    (instance, lower 128-wide tile of S), then schur_factor, one block per
+    instance.  kind "solve" (m_or_nrhs = nrhs): solve_few, one block per
+    (instance, right-hand side), for nrhs <= FEW_RHS; else solve_many, one
+    block per (instance, 64 right-hand sides).  esize is the element size
+    in bytes.  No layout depends on n: a block holds one panel, never a
+    whole right-hand side.  Raises ValueError when n is not a multiple of
+    BP, or a block needs more than `smem` bytes (the device's opt-in
+    shared memory per block)."""
+    _check_n(n)
+    vw = 16 // esize                 # elements in a 16-byte copy
+    tile_words = BP * (BP + vw)      # a 64x64 tile with its row pad
+    if kind == "factor":
+        t = -(-n // ASM_TILE)
+        out = [dict(kernel="schur_assemble", grid=B * (t * (t + 1) // 2),
+                    tile=ASM_TILE,
+                    smem=(ASM_STAGES * 2 * ASM_TILE * (ASM_KC + vw)
+                          + 2 * ASM_KC * (ASM_TILE + vw)
+                          + ASM_STAGES * ASM_KC) * esize),
+               dict(kernel="schur_factor", grid=B, tile=BP,
+                    smem=(3 * tile_words + BP) * esize)]
+    elif kind == "solve":
+        nrhs = m_or_nrhs
+        if nrhs <= FEW_RHS:
+            out = [dict(kernel="solve_few", grid=B * nrhs, tile=1,
+                        smem=17 * BP * esize)]
+        else:
+            out = [dict(kernel="solve_many", grid=B * -(-nrhs // BP),
+                        tile=BP, smem=6 * tile_words * esize)]
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    for c in out:
+        if c["smem"] > smem:
+            raise ValueError(f"{c['kernel']} needs {c['smem']} bytes of "
+                             f"shared memory; the device allows {smem}")
+        if c["grid"] >= 2 ** 31:
+            raise ValueError(f"{c['kernel']}: {c['grid']} blocks exceed "
+                             f"the grid's limit")
+    return out
+
+
 _lib = None
 
 
@@ -102,9 +157,11 @@ def _kernels():
         lib = load("fused_chol")
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for sfx in ("f32", "f64"):
-            f = getattr(lib, "schur_chol_" + sfx)
-            f.argtypes = [vp, ll, vp, ll, vp, ll, vp, vp, vp,
-                          ci, ci, ci, vp]
+            f = getattr(lib, "schur_assemble_" + sfx)
+            f.argtypes = [vp, ll, vp, ll, vp, ll, vp, ci, ci, ci, ci, ci, vp]
+            f.restype = ci
+            f = getattr(lib, "schur_factor_" + sfx)
+            f.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             f.restype = ci
             f = getattr(lib, "chol_solve_" + sfx)
             f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, ci, vp]
@@ -132,30 +189,6 @@ def _inner_contig(t, name):
         raise ValueError(f"{name} must be contiguous in its last two axes")
 
 
-def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
-    Bsz, n, _ = P3.shape
-    m = Gt.shape[-1]
-    if not P3.is_contiguous():
-        raise ValueError("P must be contiguous")
-    _inner_contig(Gt, "Gt")
-    if d2.stride(-1) != 1:
-        raise ValueError("dinv2 must be contiguous")
-    kw = dict(dtype=P3.dtype, device=P3.device)
-    L = torch.empty((Bsz, n, n), **kw)
-    Dinv = torch.empty((Bsz, n // BP, BP, BP), **kw)
-    deq = torch.empty((Bsz, n), **kw) if equilibrate else None
-    fn = getattr(_kernels(), "schur_chol_" + _SUFFIX[P3.dtype])
-    with torch.cuda.device(P3.device):
-        stream = torch.cuda.current_stream(P3.device).cuda_stream
-        err = fn(P3.data_ptr(), n * n, Gt.data_ptr(), gt_bs,
-                 d2.data_ptr(), d_bs, L.data_ptr(), Dinv.data_ptr(),
-                 deq.data_ptr() if deq is not None else None,
-                 Bsz, n, m, stream)
-    if err:
-        raise RuntimeError(f"schur_chol launch failed: CUDA error {err}")
-    return L, Dinv, deq
-
-
 _smem = {}
 
 
@@ -172,20 +205,59 @@ def _smem_optin(device):
     return _smem[idx]
 
 
-def solve_rows(n, nrhs, esize, smem):
-    """Right-hand-side rows per chol_solve block: up to SOLVE_ROWS, as
-    many as fit `smem` bytes beside the 64x65 tile and the 64-wide
-    accumulator (the block holds its rows of y, R n words).  Raises
-    ValueError when not even one row fits."""
-    words = smem // esize - BP * (BP + 1)
-    fit = words // (BP + n)
-    if fit < 1:
-        nmax = (words - BP) // BP * BP
-        raise ValueError(
-            f"chol_solve holds a right-hand side of n words in shared "
-            f"memory: n ({n}) exceeds {nmax} for {esize}-byte elements "
-            f"in {smem} bytes")
-    return max(1, min(SOLVE_ROWS, nrhs, fit))
+def _run(name, t, *args):
+    """Call launcher `name` (suffixed by t's dtype) on t's device and
+    current stream; raise on a refused launch."""
+    fn = getattr(_kernels(), name + "_" + _SUFFIX[t.dtype])
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = fn(*args, stream)
+    if err == _ERR_LAYOUT:
+        raise RuntimeError(f"{name}: launch_config disagrees with "
+                           f"csrc/fused_chol.cu")
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _assemble(P3, Gt, gt_bs, d2, d_bs, L):
+    """schur_assemble: the lower tiles of S = P + Gt diag(dinv2) Gt' into
+    L (the first of the factor's two launches)."""
+    Bsz, n, _ = P3.shape
+    m = Gt.shape[-1]
+    esize = P3.element_size()
+    cfg = launch_config("factor", Bsz, n, m, esize,
+                        _smem_optin(P3.device))[0]
+    vw = 16 // esize
+    vec = int(m % vw == 0 and gt_bs % vw == 0 and d_bs % vw == 0
+              and Gt.data_ptr() % 16 == 0 and d2.data_ptr() % 16 == 0)
+    _run("schur_assemble", P3, P3.data_ptr(), n * n, Gt.data_ptr(), gt_bs,
+         d2.data_ptr(), d_bs, L.data_ptr(), Bsz, n, m, vec, cfg["smem"])
+
+
+def _factor(L, Dinv, deq):
+    """schur_factor: L := chol(S) in place, Dinv, and deq if given (the
+    second launch)."""
+    Bsz, n, _ = L.shape
+    cfg = launch_config("factor", Bsz, n, 1, L.element_size(),
+                        _smem_optin(L.device))[1]
+    _run("schur_factor", L, L.data_ptr(), Dinv.data_ptr(),
+         deq.data_ptr() if deq is not None else None, Bsz, n, cfg["smem"])
+
+
+def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
+    if not P3.is_contiguous():
+        raise ValueError("P must be contiguous")
+    _inner_contig(Gt, "Gt")
+    if d2.stride(-1) != 1:
+        raise ValueError("dinv2 must be contiguous")
+    Bsz, n, _ = P3.shape
+    kw = dict(dtype=P3.dtype, device=P3.device)
+    L = torch.empty((Bsz, n, n), **kw)
+    Dinv = torch.empty((Bsz, n // BP, BP, BP), **kw)
+    deq = torch.empty((Bsz, n), **kw) if equilibrate else None
+    _assemble(P3, Gt, gt_bs, d2, d_bs, L)
+    _factor(L, Dinv, deq)
+    return L, Dinv, deq
 
 
 def _launch_solve(L3, D4, Bm, b_bs, nrhs):
@@ -193,15 +265,16 @@ def _launch_solve(L3, D4, Bm, b_bs, nrhs):
     if not (L3.is_contiguous() and D4.is_contiguous()):
         raise ValueError("L and Dinv must be contiguous")
     _inner_contig(Bm, "B_rows")
-    rows = solve_rows(n, nrhs, L3.element_size(), _smem_optin(L3.device))
+    # the kernels copy L and Dinv in 16-byte pieces
+    if L3.data_ptr() % 16:
+        L3 = L3.clone()
+    if D4.data_ptr() % 16:
+        D4 = D4.clone()
+    cfg = launch_config("solve", Bsz, n, nrhs, L3.element_size(),
+                        _smem_optin(L3.device))[0]
     X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
-    fn = getattr(_kernels(), "chol_solve_" + _SUFFIX[L3.dtype])
-    with torch.cuda.device(L3.device):
-        stream = torch.cuda.current_stream(L3.device).cuda_stream
-        err = fn(L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(), b_bs,
-                 X.data_ptr(), Bsz, n, nrhs, rows, stream)
-    if err:
-        raise RuntimeError(f"chol_solve launch failed: CUDA error {err}")
+    _run("chol_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(), b_bs,
+         X.data_ptr(), Bsz, n, nrhs, cfg["smem"])
     return X
 
 
@@ -249,10 +322,7 @@ def fused_cholesky_solve(L, Dinv, B_rows, *, device="cuda"):
     """x = (L L')^{-1} b for right-hand sides stored as rows.
 
     L (n, n) or (B, n, n); Dinv (..., n/64, 64, 64); B_rows (nrhs, n)
-    or (B, nrhs, n).  Returns B_rows' shape.  On the card a block holds
-    whole right-hand-side rows in shared memory, so n is at most 24832
-    in float64 and 53888 in float32 with the 227 KB of an H100
-    (`solve_rows`; ValueError beyond)."""
+    or (B, nrhs, n).  Returns B_rows' shape."""
     dev = resolve_device(device)
     check_on(dev, L, Dinv, B_rows)
     _check_dtype(L, Dinv, B_rows)
@@ -275,8 +345,7 @@ def fused_schur_cholesky_batched(P, Gt, dinv2, tb: int = 8, *,
                                  equilibrate=False, device="cuda"):
     """Batched L, Dinv with a shared Gt: P (B, n, n), Gt (n, m), dinv2
     (B, m).  B must be a multiple of tb (kept from the TPU kernel's
-    signature; the CUDA kernel runs one instance per thread block and
-    otherwise ignores it) and n of BP."""
+    signature; the CUDA kernels otherwise ignore it) and n of BP."""
     dev = resolve_device(device)
     check_on(dev, P, Gt, dinv2)
     _check_dtype(P, Gt, dinv2)
@@ -297,8 +366,7 @@ def fused_cholesky_solve_batched(L, Dinv, B_rows, tb: int = 8, *,
                                  device="cuda"):
     """Batched multi-RHS solve: L (B, n, n), Dinv (B, n/64, 64, 64),
     B_rows (B, nrhs, n); B_rows may be an expanded view with batch
-    stride 0 (e.g. one identity for the whole batch).  n is limited as
-    in `fused_cholesky_solve`."""
+    stride 0 (e.g. one identity for the whole batch)."""
     dev = resolve_device(device)
     check_on(dev, L, Dinv, B_rows)
     _check_dtype(L, Dinv, B_rows)

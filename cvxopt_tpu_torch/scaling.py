@@ -27,6 +27,7 @@ from typing import Dict, List
 
 import torch
 
+from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import (
     ConeDims, jdot, jnrm2, qview, sview, sdiagview, _flat, _bcast,
 )
@@ -74,11 +75,11 @@ def _chol_nan(A: Tensor) -> Tensor:
     return torch.where(bad, torch.full_like(L, float("nan")), L)
 
 
-def identity_scaling(dims: ConeDims, dtype=torch.float64, device="cpu",
+def identity_scaling(dims: ConeDims, dtype=torch.float64, device="cuda",
                      batch=()) -> Dict:
     """W = identity, with leading batch shape `batch`."""
     batch = tuple(batch)
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     W = {"d": torch.ones(batch + (dims.l,), **kw),
          "di": torch.ones(batch + (dims.l,), **kw),
          "beta": [], "v": [], "r": [], "rti": []}

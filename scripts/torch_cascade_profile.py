@@ -5,8 +5,10 @@
 
 Runs cvxopt_tpu_torch's make_coneqp_cascade(l=512, kktsolver,
 maxiters=50, 1e-7) on bench.py's scenario QPs (1024 instances, n=256,
-seeded numpy): one warm-up, three timed solves (wall seconds and aggregate IPM
-iterations/s each), then one solve under torch.profiler.  Prints one
+seeded numpy): one warm-up solve of the same batch (so the timed solves
+pay no first-use costs: allocations, lazily loaded kernels), three timed
+solves (wall seconds and aggregate IPM iterations/s each), then one
+solve under torch.profiler.  Prints one
 JSON line: the card (nvidia-smi name and power limit), the timed runs,
 device kernel time against the profiled wall time (the idle share),
 kernel launches, and the kernels that take the most device time.  The
@@ -48,8 +50,8 @@ def main(argv=None):
     solve = make_coneqp_cascade(
         ConeDims(l=2 * N), kktsolver=args.kktsolver, maxiters=50,
         abstol=1e-7, reltol=1e-7, feastol=1e-7, instrument=True)
-    solve(*scenario_qps(64, N, seed=1))
     data = scenario_qps(NB, N, seed=0)
+    solve(*data)
 
     runs = []
     for _ in range(REPS):

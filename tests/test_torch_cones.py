@@ -105,7 +105,7 @@ def test_unpack_and_matrix_cols(data):
 
 
 def test_cone_identity():
-    _close(tc.cone_identity(TD, dtype=torch.float64),
+    _close(tc.cone_identity(TD, dtype=torch.float64, device="cpu"),
            jc.cone_identity(JD, dtype=jnp.float64))
 
 

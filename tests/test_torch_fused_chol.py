@@ -215,24 +215,60 @@ def test_solve_accepts_shared_rhs_view():
                                atol=1e-10)
 
 
-# (n, nrhs, element size, shared memory bytes) -> rows per solve block;
-# 232448 bytes is an H100's opt-in shared memory per block
-@pytest.mark.parametrize("n,nrhs,esize,smem,rows", [
-    (256, 256, 4, 232448, 16),
-    (256, 1, 8, 232448, 1),
-    (1536, 1536, 8, 232448, 15),
-    (3328, 3328, 4, 232448, 15),
-    (24832, 24832, 8, 232448, 1),
+H100_SMEM = 232448   # an H100's opt-in shared memory per block, bytes
+
+
+# (kind, B, n, m or nrhs) -> [(kernel, grid blocks, tile)]: PERF.md's
+# rows 1-4' and B = 1
+@pytest.mark.parametrize("kind,B,n,k,launches", [
+    ("factor", 64, 256, 256, [("schur_assemble", 192, 128),
+                              ("schur_factor", 64, 64)]),
+    ("factor", 1024, 256, 512, [("schur_assemble", 3072, 128),
+                                ("schur_factor", 1024, 64)]),
+    ("factor", 1, 320, 1, [("schur_assemble", 6, 128),
+                           ("schur_factor", 1, 64)]),
+    ("solve", 64, 256, 1, [("solve_few", 64, 1)]),
+    ("solve", 1024, 256, 256, [("solve_many", 4096, 64)]),
+    ("solve", 1024, 256, 1, [("solve_few", 1024, 1)]),
+    ("solve", 1, 192, 65, [("solve_many", 2, 64)]),
 ])
-def test_solve_rows_fit_shared_memory(n, nrhs, esize, smem, rows):
-    """chol_solve's block holds R right-hand-side rows of y beside a
-    64x65 tile and a 64-wide accumulator: R shrinks as n grows."""
-    assert fc.solve_rows(n, nrhs, esize, smem) == rows
-    assert (fc.BP * (fc.BP + 1) + rows * (fc.BP + n)) * esize <= smem
+def test_launch_config_grids(kind, B, n, k, launches):
+    for esize in (4, 8):
+        got = fc.launch_config(kind, B, n, k, esize, H100_SMEM)
+        assert [(c["kernel"], c["grid"], c["tile"]) for c in got] == \
+            launches
+        assert all(c["smem"] <= H100_SMEM for c in got)
 
 
-@pytest.mark.parametrize("esize,nmax", [(8, 24832), (4, 53888)])
-def test_solve_rows_names_the_largest_n(esize, nmax):
-    assert fc.solve_rows(nmax, 1, esize, 232448) == 1
-    with pytest.raises(ValueError, match=f"exceeds {nmax}"):
-        fc.solve_rows(nmax + fc.BP, 1, esize, 232448)
+@pytest.mark.parametrize("nrhs,kernel", [
+    (1, "solve_few"), (fc.FEW_RHS, "solve_few"),
+    (fc.FEW_RHS + 1, "solve_many"), (64, "solve_many")])
+def test_launch_config_few_many_threshold(nrhs, kernel):
+    (c,) = fc.launch_config("solve", 2, 128, nrhs, 4, H100_SMEM)
+    assert c["kernel"] == kernel
+
+
+@pytest.mark.parametrize("esize", [4, 8])
+def test_launch_config_smem_independent_of_n(esize):
+    """Every block holds one panel at most, never a whole right-hand
+    side: shared memory stays within an H100's at any n."""
+    for kind, k in (("factor", 512), ("solve", 1), ("solve", 256)):
+        sizes = {tuple(c["smem"] for c in
+                       fc.launch_config(kind, 4, n, k, esize, H100_SMEM))
+                 for n in range(64, 8193, 64)}
+        assert len(sizes) == 1
+        assert max(next(iter(sizes))) <= H100_SMEM
+
+
+def test_launch_config_has_no_n_cap():
+    """n = 25600 in float64, more than one right-hand side's row would
+    leave room for in a block's shared memory, launches like any n."""
+    (c,) = fc.launch_config("solve", 1, 25600, 1, 8, H100_SMEM)
+    assert c["kernel"] == "solve_few" and c["grid"] == 1
+
+
+def test_launch_config_refuses():
+    with pytest.raises(ValueError, match="multiple"):
+        fc.launch_config("solve", 1, 100, 1, 4, H100_SMEM)
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.launch_config("solve", 1, 256, 256, 8, 48 * 1024)

@@ -15,6 +15,8 @@ import torch
 
 import cvxopt_tpu_torch
 from cvxopt_tpu_torch import ConeDims, convert
+from cvxopt_tpu_torch.cones import cone_identity
+from cvxopt_tpu_torch.scaling import identity_scaling
 from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade, \
     coneqp
 from cvxopt_tpu_torch.ops import fused_chol as fc
@@ -82,6 +84,8 @@ def test_entry_points_raise_without_card(no_card):
         lambda: make_coneqp(dims),
         lambda: make_coneqp_cascade(dims),
         lambda: coneqp(np.eye(2), np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: cone_identity(dims),
+        lambda: identity_scaling(dims),
         lambda: fc.fused_schur_cholesky(torch.eye(64), torch.ones(64, 2),
                                         torch.ones(2)),
         lambda: fc.fused_cholesky_solve(torch.eye(64),

@@ -62,7 +62,8 @@ def data():
 
 
 def test_identity_scaling():
-    Wt = ts.identity_scaling(TD, dtype=torch.float64, batch=(B,))
+    Wt = ts.identity_scaling(TD, dtype=torch.float64, device="cpu",
+                             batch=(B,))
     Wj = js.identity_scaling(JD, dtype=jnp.float64)
     for k in ("d", "di"):
         _close(Wt[k][0], Wj[k])

@@ -20,8 +20,20 @@ Phases, each printing one JSON line:
   entry    make_coneqp(l=256) on 64 QPs with per-instance G in f32 and
            f64: the unbatched kernels launched, 4 instances agree with
            the port's CPU run
+  socp     make_coneqp_cascade(q=(4,)*100, 'chol2_inv', 1e-7, per-instance
+           G/h) on 1024 SOC-constrained QPs with n=64: every status 0,
+           gap/pres/dres <= 1e-7, the unbatched kernels launched, 4
+           instances agree with the port's float64 CPU run
+  conelp_lp  make_conelp_cascade(l=512, 'chol2', 1e-7) on 1024 scenario
+           LPs with n=256 and shared G/h/A/b: same checks, the batched
+           kernels launched
+  sdp      make_conelp_cascade(s=(50,), 1e-7/1e-6/1e-7, per-instance
+           G/h) on 128 max-cut SDP relaxations with m=50: same checks
+           (no hand-written kernel on this path: the default 'qr')
 
-Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
+Each solver phase sets the kernels' launch counts to 0 just before its
+timed solve and reads them just after.  Then a `{"kernels": [...]}` line
+(one row per wrapper and shape, with the phases that launched it), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises, and the
 script exits non-zero; it also exits non-zero, printing no result,
 when no CUDA device is present.
@@ -35,7 +47,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "build", "kernels", "cascade", "entry")
+PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
+          "conelp_lp", "sdp")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth
@@ -135,6 +148,49 @@ def entry_qps(nb, n, dtype):
     A = np.broadcast_to(np.ones((1, n), dtype=dtype), (nb, 1, n)).copy()
     b = np.ones((nb, 1), dtype=dtype)
     return P, q, G, h, A, b
+
+
+def soc_qps(nb, n=64, nq=100, mq=4, seed=0):
+    """bench.py bench_socp's problem in seeded numpy: P = F F' + 0.1 I,
+    and per block ||D_i x + f_i|| <= g_i'x + 1 (x = 0 strictly
+    feasible), G rows [-g_i'; -D_i], h = [1; f_i]; per-instance G, h."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    m = nq * mq
+    F = rng.standard_normal((nb, n, n // 4)) / np.sqrt(n)
+    P = F @ F.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = -rng.uniform(0.0, 0.1, (nb, n))
+    G = 0.3 * rng.standard_normal((nb, m, n))
+    h = 0.1 * rng.standard_normal((nb, nq, mq))
+    h[:, :, 0] = 1.0
+    return (P, q, G, h.reshape(nb, m), np.zeros((nb, 0, n)),
+            np.zeros((nb, 0)))
+
+
+def scenario_lps(nb, n=256, seed=0):
+    """The scenario problems without P: min q'x, 0 <= x <= 1,
+    sum x = 1, shared G/h/A/b; seeded numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    c = -rng.uniform(0.0, 0.1, (nb, n))
+    eye = np.eye(n)
+    return (c, np.concatenate([-eye, eye]),
+            np.concatenate([np.zeros(n), np.ones(n)]), np.ones((1, n)),
+            np.ones(1))
+
+
+def mcsdp_batch(nb, m=50, seed=0):
+    """bench.py's batched max-cut SDP relaxation: min 1'x subject to
+    diag(x) + W PSD, with a seeded symmetric W per instance;
+    per-instance G/h/A/b."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    G = np.zeros((m * m, m))
+    G[np.arange(m) * (m + 1), np.arange(m)] = -1.0
+    W = rng.standard_normal((nb, m, m))
+    W = (W + W.transpose(0, 2, 1)) / np.sqrt(m)
+    return (np.ones((nb, m)), np.broadcast_to(G, (nb,) + G.shape).copy(),
+            W.reshape(nb, -1), np.zeros((nb, 0, m)), np.zeros((nb, 0)))
 
 
 # ---- phases --------------------------------------------------------------
@@ -316,6 +372,89 @@ def phase_kernels(log, results):
             r1.transpose(1, 2), L1)),
         bound_ms=bound, bound_by=by)
 
+    del P, Gt, d2, L1, D1, ref1
+
+    # -- the SOCP path's shapes: per-instance Gt = Gs' (1024, 64, 400),
+    # the inverse by nrhs = 64 (phase A's chol2_inv), nrhs = 1 (phase C)
+    Bq, nq_, mq_ = 1024, 64, 400
+    P, Gt, d2 = kernel_data(Bq, nq_, mq_, f32, True, seed=5)
+    d2 = torch.ones_like(d2)
+    (L5, D5), ref5, e5 = _check_factor(k1, P, Gt, d2, "float32",
+                                       "fused_schur_cholesky (socp)", False)
+    bound, by = _factor_bound(Bq, nq_, mq_, False, 4)
+    results["fused_schur_cholesky/socp"] = dict(
+        name="fused_schur_cholesky", replaces=rep + "129",
+        shape=[Bq, nq_, mq_], dtype="float32", rel_fro_err=e5,
+        max_abs_err=max_abs(L5, ref5[0]),
+        ms=time_ms(lambda: k1(P, Gt, d2)),
+        plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
+        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        bound_ms=bound, bound_by=by)
+    r = results["fused_schur_cholesky/socp"]
+    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+    eye = torch.eye(nq_, dtype=f32, device="cuda").expand(Bq, nq_, nq_)
+    r1 = torch.randn((Bq, 1, nq_), device="cuda", dtype=f32, generator=g)
+    s2 = lambda rhs: fc.fused_cholesky_solve(L5, D5, rhs)
+    x64, x1 = s2(eye), s2(r1)
+    x64r = fc.fused_cholesky_solve_ref(L5, D5, eye)
+    x1r = fc.fused_cholesky_solve_ref(L5, D5, r1)
+    e6 = {"nrhs64": rel_fro(x64, x64r), "nrhs1": rel_fro(x1, x1r)}
+    check(all(v <= TOL["float32"] for v in e6.values()),
+          f"fused_cholesky_solve (socp) disagrees: {e6}")
+    bound, by = _solve_bound(Bq, nq_, nq_, True, 4)
+    bound1, by1 = _solve_bound(Bq, nq_, 1, False, 4)
+    results["fused_cholesky_solve/socp"] = dict(
+        name="fused_cholesky_solve", replaces=rep + "194",
+        shape=[Bq, nq_, nq_], dtype="float32", rel_fro_err=e6,
+        max_abs_err=max_abs(x64, x64r),
+        ms=time_ms(lambda: s2(eye)),
+        plain_ms=time_ms(lambda: fc.fused_cholesky_solve_ref(L5, D5, eye)),
+        library_ms=time_ms(lambda: torch.cholesky_solve(eye, L5)),
+        bound_ms=bound, bound_by=by,
+        nrhs1=dict(ms=time_ms(lambda: s2(r1)),
+                   plain_ms=time_ms(
+                       lambda: fc.fused_cholesky_solve_ref(L5, D5, r1)),
+                   library_ms=time_ms(lambda: torch.cholesky_solve(
+                       r1.transpose(1, 2), L5)),
+                   bound_ms=bound1, bound_by=by1))
+    del P, Gt, d2, L5, D5, ref5, eye, x64, x64r
+
+    # -- the cone-LP path's shapes: shared Gt, P = 0 (1024, 256, 512),
+    # solves at nrhs = 1 (S^{-1} A' with p = 1, and every KKT solve)
+    P, Gt, d2 = kernel_data(B, n, m, f32, False, seed=6)
+    P = torch.zeros_like(P)
+    (L7, D7), ref7, e7 = _check_factor(
+        b3, P, Gt, d2, "float32", "fused_schur_cholesky_batched (P = 0)",
+        False)
+    bound, by = _factor_bound(B, n, m, True, 4)
+    results["fused_schur_cholesky_batched/lp"] = dict(
+        name="fused_schur_cholesky_batched", replaces=rep + "338",
+        shape=[B, n, m], dtype="float32", rel_fro_err=e7,
+        max_abs_err=max_abs(L7, ref7[0]),
+        ms=time_ms(lambda: b3(P, Gt, d2)),
+        plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
+        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        bound_ms=bound, bound_by=by)
+    r = results["fused_schur_cholesky_batched/lp"]
+    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+    r1 = torch.randn((B, 1, n), device="cuda", dtype=f32, generator=g)
+    s8 = lambda rhs: fc.fused_cholesky_solve_batched(L7, D7, rhs, tb=8)
+    x1, x1r = s8(r1), fc.fused_cholesky_solve_ref(L7, D7, r1)
+    e8 = rel_fro(x1, x1r)
+    check(e8 <= TOL["float32"],
+          f"fused_cholesky_solve_batched (lp) disagrees: {e8}")
+    bound, by = _solve_bound(B, n, 1, False, 4)
+    results["fused_cholesky_solve_batched/lp"] = dict(
+        name="fused_cholesky_solve_batched", replaces=rep + "404",
+        shape=[B, n, 1], dtype="float32", rel_fro_err=e8,
+        max_abs_err=max_abs(x1, x1r),
+        ms=time_ms(lambda: s8(r1)),
+        plain_ms=time_ms(lambda: fc.fused_cholesky_solve_ref(L7, D7, r1)),
+        library_ms=time_ms(lambda: torch.cholesky_solve(
+            r1.transpose(1, 2), L7)),
+        bound_ms=bound, bound_by=by)
+    del P, Gt, d2, L7, D7, ref7
+
     # -- float64 at B = 64, with one non-PD instance (must be NaN)
     B64 = 64
     f64errs = {}
@@ -346,6 +485,8 @@ def phase_kernels(log, results):
               f"{name}/{sname} float64 disagree: {eL} {eD} {ex}")
     for k, v in f64errs.items():
         results[k]["rel_fro_err_float64_B64"] = v
+    for k, r in results.items():
+        r.setdefault("name", k)
     for r in results.values():
         for row in (r, r.get("nrhs1")):
             if row:
@@ -390,7 +531,9 @@ def phase_cascade(log, results):
     for k in ("fused_schur_cholesky_batched",
               "fused_cholesky_solve_batched"):
         check(counts[k] > 0, f"cascade did not launch {k}")
-        results[k]["launches"] = counts[k]
+        if k in results:
+            results[k]["launches"] = counts[k]
+            results[k].setdefault("paths", []).append("cascade")
     # four instances against the port's float64 'chol2' solve on the CPU
     cpu = make_coneqp(dims, kktsolver="chol2", abstol=1e-7, reltol=1e-7,
                       feastol=1e-7, device="cpu")
@@ -441,14 +584,133 @@ def phase_entry(log, results):
         check(dx <= xtol, f"entry {rec['dtype']}: x differs by {dx}")
         for k in ("fused_schur_cholesky", "fused_cholesky_solve"):
             check(counts[k] > 0, f"entry path did not launch {k}")
-            if dtype == np.float32:
+            if dtype == np.float32 and k in results:
                 results[k]["launches"] = counts[k]
+                results[k].setdefault("paths", []).append("entry")
         emit(rec, log)
+
+
+def _attribute(results, counts, phase, rows):
+    """Write the wrappers' launch counts of one solver phase into the
+    kernel rows at that phase's shapes."""
+    for key in rows:
+        name = key.split("/")[0]
+        check(counts[name] > 0, f"{phase} did not launch {name}")
+        if key in results:
+            results[key]["launches"] = counts[name]
+            results[key].setdefault("paths", []).append(phase)
+
+
+def _solver_phase(log, results, phase, solve, data, warm, rows, cpu_ref,
+                  reltol, xtol, extra=None):
+    """One cascade on the card: a warm-up solve of a few instances
+    (library handles, first-use allocations), the counts set to 0, the
+    timed solve, the counts read; then the checks: every status 0,
+    pres/dres <= 1e-7 and gap <= 1e-7 (or relgap <= reltol where the
+    solver's reltol exit is looser), the kernels of `rows` launched, and
+    4 instances against the port's float64 run on the CPU."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    solve(*warm)
+    data = tuple(torch.as_tensor(u, device="cuda") for u in data)
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = solve(*data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    nb = data[0].shape[0]
+    iters = int(out["iterations"].sum())
+    conv = (out["gap"] <= 1e-7) | (out["relgap"] <= reltol)
+    rec = {"phase": phase, "instances": nb,
+           "solved": int((out["status"] == 0).sum()),
+           "max_gap": float(out["gap"].max()),
+           "max_relgap": float(out["relgap"].max()),
+           "max_pres": float(out["pres"].max()),
+           "max_dres": float(out["dres"].max()),
+           "iterations": iters, "wall_s": wall,
+           "ipm_iters_per_s": iters / wall,
+           "rescue_iterations": int(out["rescue_iterations"].sum()),
+           "profile": out["profile"], "launches": counts}
+    rec.update(extra or {})
+    check(rec["solved"] == nb, f"{phase}: {nb - rec['solved']} unsolved")
+    check(bool(conv.all()), f"{phase}: gap {rec['max_gap']} relgap "
+          f"{rec['max_relgap']}")
+    check(max(rec["max_pres"], rec["max_dres"]) <= 1e-7,
+          f"{phase} residuals {rec['max_pres']} {rec['max_dres']}")
+    if rows:
+        _attribute(results, counts, phase, rows)
+    else:
+        check(not any(counts.values()),
+              f"{phase}: unexpected kernel launches {counts}")
+    ref = cpu_ref(*(u.cpu() for u in data))
+    dx = float((out["x"][:4].cpu() - ref["x"]).abs().max())
+    dp = float(((out["pcost"][:4].cpu() - ref["pcost"]).abs()
+                / ref["pcost"].abs().clamp(min=1.0)).max())
+    rec.update(x_vs_cpu_f64_max_abs=dx, pcost_vs_cpu_f64_max_rel=dp,
+               x_tolerance=xtol, cpu_status=ref["status"].tolist(),
+               nvidia_smi=nvidia_smi())
+    check(all(v == 0 for v in rec["cpu_status"]), f"{phase}: CPU run")
+    check(dx <= xtol, f"{phase}: x differs from the CPU f64 solve: {dx}")
+    check(dp <= max(1e-6, 3 * reltol),
+          f"{phase}: objective differs from the CPU's: {dp}")
+    emit(rec, log)
+
+
+def phase_socp(log, results):
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.coneqp import make_coneqp_cascade, make_coneqp
+    dims = ConeDims(q=(4,) * 100)
+    tol = dict(abstol=1e-7, reltol=1e-7, feastol=1e-7)
+    solve = make_coneqp_cascade(dims, kktsolver="chol2_inv", maxiters=50,
+                                shared_GhAb=False, instrument=True, **tol)
+    cpu = make_coneqp(dims, kktsolver="chol2", device="cpu", **tol)
+    _solver_phase(
+        log, results, "socp", solve, soc_qps(1024, seed=0),
+        soc_qps(64, seed=1),
+        ("fused_schur_cholesky/socp", "fused_cholesky_solve/socp"),
+        lambda *d: cpu(*(u[:4] for u in d)), 1e-7, 1e-6,
+        extra={"n": 64, "cone": "q=(4,)*100"})
+
+
+def phase_conelp_lp(log, results):
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.conelp import make_conelp_cascade, make_conelp
+    dims = ConeDims(l=512)
+    tol = dict(abstol=1e-7, reltol=1e-7, feastol=1e-7)
+    solve = make_conelp_cascade(dims, kktsolver="chol2", maxiters=50,
+                                instrument=True, **tol)
+    cpu = make_conelp(dims, kktsolver="chol2", device="cpu", **tol)
+    _solver_phase(
+        log, results, "conelp_lp", solve, scenario_lps(1024, seed=0),
+        scenario_lps(64, seed=1),
+        ("fused_schur_cholesky_batched/lp",
+         "fused_cholesky_solve_batched/lp"),
+        lambda c, *shared: cpu(c[:4], *shared), 1e-7, 1e-6,
+        extra={"n": 256, "cone": "l=512"})
+
+
+def phase_sdp(log, results):
+    """x of an SDP stopped at relgap <= 1e-6 is determined to about
+    1e-4 only, so x is held to 1e-3 and the objective to 1e-6."""
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.conelp import make_conelp_cascade, make_conelp
+    dims = ConeDims(s=(50,))
+    tol = dict(abstol=1e-7, reltol=1e-6, feastol=1e-7)
+    solve = make_conelp_cascade(dims, maxiters=40, shared_GhAb=False,
+                                instrument=True, **tol)
+    cpu = make_conelp(dims, maxiters=40, device="cpu", **tol)
+    _solver_phase(
+        log, results, "sdp", solve, mcsdp_batch(128, seed=0),
+        mcsdp_batch(8, seed=1), (),
+        lambda *d: cpu(*(u[:4] for u in d)), 1e-6, 1e-3,
+        extra={"m": 50, "cone": "s=(50,)"})
 
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "bound_share")
+        "bound_share", "shape", "paths")
 
 
 def main(argv=None):
@@ -479,13 +741,24 @@ def main(argv=None):
         phase_cascade(log, results)
     if "entry" in phases:
         phase_entry(log, results)
+    if "socp" in phases:
+        phase_socp(log, results)
+    if "conelp_lp" in phases:
+        phase_conelp_lp(log, results)
+    if "sdp" in phases:
+        phase_sdp(log, results)
 
     kernels = []
-    for name, r in results.items():
-        row = dict(r, name=name, route="cuda",
+    for r in results.values():
+        row = dict(r, route="cuda",
                    source="cvxopt_tpu_torch/csrc/fused_chol.cu")
         row.setdefault("launches", 0)
+        row.setdefault("paths", [])
         kernels.append({k: row[k] for k in KEYS})
+    if all(ph in phases for ph in PHASES):
+        idle = [r["name"] + str(r["shape"]) for r in kernels
+                if not r["launches"]]
+        check(not idle, f"no solver phase launched {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

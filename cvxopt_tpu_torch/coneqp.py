@@ -22,7 +22,6 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from cvxopt_tpu_torch import cones
@@ -35,31 +34,16 @@ from cvxopt_tpu_torch.conelp import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STRINGS,
     STEP, EXPON, RESCUE_STALL_ITERS, RESCUE_RELRES, _prep_inputs,
-    _tnorm_parts,
+    _tnorm_parts, _col, _where, _run_loop, _restart_state, _tensors,
+    _unbatch, rescue_compacted,
 )
-
-
-def _col(t):
-    """Per-instance scalar (B,) as a column (B, 1)."""
-    return t.unsqueeze(-1)
-
-
-def _where(mask, a, b):
-    """torch.where over matching tensor / list / dict structures with
-    a per-instance (B,) mask."""
-    if isinstance(a, dict):
-        return {k: _where(mask, a[k], b[k]) for k in a}
-    if isinstance(a, list):
-        return [_where(mask, u, v) for u, v in zip(a, b)]
-    m = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
-    return torch.where(m, a, b)
 
 
 def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
                   q, h, b, n, p, dtype, maxiters, abstol, reltol,
                   feastol, refinement, correction, show_progress,
                   initvals=None, factor_W64=None, refine_pred=True,
-                  detect_rescue=False,
+                  relres_trigger=True, detect_rescue=False,
                   debug=False):
     """The coneqp algorithm on a batch (q: (B, n); h, b: shared or
     batched) with all linear maps as closures on batched vectors."""
@@ -298,8 +282,11 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         if rescue:
             # diverging refinement far from convergence, or a singular
             # f32 factor (NaN step): discard the step, hand the instance
-            # to the f64 restart phase
-            fail = fail | ((relres > RESCUE_RELRES) & (m > 100.0))
+            # to the f64 restart phase.  relres_trigger is off for the
+            # condition-halved 'cholqr' on q/s cones, whose normwise
+            # residual expansion is expected and benign
+            if relres_trigger:
+                fail = fail | ((relres > RESCUE_RELRES) & (m > 100.0))
             fail_status = STATUS_NEEDS_F64
         else:
             fail_status = STATUS_UNKNOWN_SINGULAR
@@ -321,37 +308,21 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         return out
 
     syncs = [0]
-
-    def run_loop(st, fW, rescue):
-        while True:
-            running = st["status"] == STATUS_RUNNING
-            syncs[0] += 1
-            if not bool(running.any()):    # the one host sync per pass
-                return st
-            new = _body(st, fW, rescue)
-            st = {k: _where(running, new[k], st[k]) for k in st}
-
     if factor_W64 is None:
-        final = run_loop(state, factor_W, detect_rescue)
+        final = _run_loop(state,
+                          lambda st: _body(st, factor_W, detect_rescue),
+                          syncs)
         rescue_iters = torch.zeros_like(final["iters"])
     else:
         # phase 1: mixed-precision factor with failure detection;
         # phase 2: full-precision factor for the instances phase 1
         # could not finish, restarted from the initial point
-        st1 = run_loop(state, factor_W, True)
-        it1 = st1["iters"]
-        was64 = st1["status"] == STATUS_NEEDS_F64
-        st2 = dict(st1)
-        for k in ("x", "y", "s", "z", "W", "lmbda", "gap"):
-            st2[k] = _where(was64, state0[k], st1[k])
-        st2["status"] = torch.where(
-            was64, STATUS_RUNNING, st1["status"]).to(torch.int32)
-        st2["stall"] = torch.zeros_like(st1["stall"])
-        st2["best_m"] = torch.full_like(st1["best_m"], float("inf"))
-        st2["max_it"] = torch.where(was64, it1 + maxiters,
-                                    st1["max_it"]).to(torch.int32)
-        final = run_loop(st2, factor_W64, False)
-        rescue_iters = final["iters"] - it1
+        st1 = _run_loop(state, lambda st: _body(st, factor_W, True), syncs)
+        st2 = _restart_state(st1, state0, ("x", "y", "s", "z", "W",
+                                           "lmbda", "gap"), maxiters)
+        final = _run_loop(st2, lambda st: _body(st, factor_W64, False),
+                          syncs)
+        rescue_iters = final["iters"] - st1["iters"]
     ts = cones.max_step(final["s"], dims)
     tz = cones.max_step(final["z"], dims)
     return dict(
@@ -382,11 +353,6 @@ def _maps(P, G, A):
                 Af=lambda x: mv(A, x), ATf=lambda y: mvt(A, y))
 
 
-def _tensors(dev, *arrays, dtype=None):
-    return tuple(torch.as_tensor(a, device=dev, dtype=dtype)
-                 for a in arrays)
-
-
 def make_coneqp(dims: ConeDims, kktsolver: str = "default",
                 maxiters: int = 100, abstol: float = 1e-7,
                 reltol: float = 1e-6, feastol: float = 1e-7,
@@ -405,10 +371,6 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_qp_opts(dims, kktsolver,
                                              refinement)
-    if factor_dtype == "rescue" and (dims.q or dims.s):
-        raise NotImplementedError(
-            "factor_dtype='rescue' on 'q'/'s' cones factors with "
-            "'cholqr', not ported yet (ROADMAP.md Queue 1 item 6)")
 
     def core(P, q, G, h, A, b, initvals=None):
         q, = _tensors(dev, q)
@@ -421,6 +383,7 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
             P = P.expand(Bsz, n, n)
         fd = factor_dtype
         factor_W64 = None
+        fname = kktsolver
         if fd == "rescue":
             rname = kktmod.robust_name(kktsolver)
             f64 = kktmod.get_kktsolver(rname, G, dims, A, kktreg=kktreg,
@@ -428,9 +391,16 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
             P64 = kktmod.wrap_P(rname, P)
             factor_W64 = lambda W: f64(W, P64)
             fd = "float32"
-        factor = kktmod.get_kktsolver(kktsolver, G, dims, A, kktreg=kktreg,
+            if (dims.q or dims.s) and kktsolver in (
+                    "chol", "chol2", "chol_inv", "chol2_inv"):
+                # q/s cones: an f32 Cholesky of the formed normal
+                # equations cannot reach 1e-7 (kappa(S) ~ 1/mu^2); the
+                # condition-halving QR factor can
+                fname = "cholqr_inv" if kktsolver.endswith("_inv") \
+                    else "cholqr"
+        factor = kktmod.get_kktsolver(fname, G, dims, A, kktreg=kktreg,
                                       factor_dtype=fd)
-        Pw = kktmod.wrap_P(kktsolver, P, factor_dtype=(
+        Pw = kktmod.wrap_P(fname, P, factor_dtype=(
             fd if fd == "float32" else None))
         raw = _coneqp_solve(
             dims, factor_W=lambda W: factor(W, Pw),
@@ -439,11 +409,9 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
             maxiters=maxiters, abstol=abstol, reltol=reltol,
             feastol=feastol, refinement=refinement,
             correction=correction, show_progress=show_progress,
-            debug=debug, initvals=initvals)
-        if single:
-            raw = {k: (v[0] if torch.is_tensor(v) else v)
-                   for k, v in raw.items()}
-        return raw
+            debug=debug, initvals=initvals,
+            relres_trigger=not ((dims.q or dims.s) and "cholqr" in fname))
+        return _unbatch(raw) if single else raw
 
     return core
 
@@ -464,7 +432,10 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
 
       A. pure-f32 solve to `phase1_tol`;
       B. warm-started f64-residual / f32-factor solve (equilibrated
-         factor plus iterative refinement) to the target tolerances;
+         factor plus iterative refinement) to the target tolerances; on
+         'q'/'s' cones, where the ill-conditioning of the scaled Gram
+         matrix is not diagonal, the f32 factor is 'cholqr_inv' with two
+         refinement rounds;
       C. f64-factor cold restart for the instances phase B flagged,
          compacted on the host into a power-of-two padded batch.
 
@@ -475,10 +446,9 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_qp_opts(dims, kktsolver,
                                              refinement)
-    if dims.q or dims.s:
-        raise NotImplementedError(
-            "the cascade's phase B on 'q'/'s' cones factors with "
-            "'cholqr', not ported yet (ROADMAP.md Queue 1 item 6)")
+    mixed_ok = not (dims.q or dims.s)
+    refinement_b = max(1, refinement) if mixed_ok else max(2, refinement)
+    bname = kktsolver if mixed_ok else "cholqr_inv"
     f32 = torch.float32
 
     def common(P, q, G, h, A, b):
@@ -500,15 +470,15 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         return {k: raw[k] for k in keys}
 
     def phase_b(P, q, G, h, A, b, iv):
-        factor_b = kktmod.get_kktsolver(kktsolver, G, dims, A,
-                                        kktreg=kktreg,
+        factor_b = kktmod.get_kktsolver(bname, G, dims, A, kktreg=kktreg,
                                         factor_dtype="float32")
-        Pb = kktmod.wrap_P(kktsolver, P, factor_dtype="float32")
+        Pb = kktmod.wrap_P(bname, P, factor_dtype="float32")
         return _coneqp_solve(
             dims, factor_W=lambda W: factor_b(W, Pb), detect_rescue=True,
             **common(P, q, G, h, A, b),
             abstol=abstol, reltol=reltol, feastol=feastol,
-            refinement=max(1, refinement), initvals=iv, refine_pred=False)
+            refinement=refinement_b, initvals=iv, refine_pred=False,
+            relres_trigger=mixed_ok)
 
     def phase_c(P, q, G, h, A, b):
         rname = kktmod.robust_name(kktsolver)
@@ -552,47 +522,19 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         raw["phase1_iterations"] = raw_a["iterations"]
 
         # ---- phase C: host-compacted f64 rescue ----------------------
-        status = raw["status"].cpu().numpy()
-        (flagged,) = np.nonzero(status == STATUS_NEEDS_F64)
-        raw["rescue_iterations"] = torch.zeros_like(raw["iterations"])
         t0 = time.perf_counter()
-        if flagged.size:
-            nb = status.shape[0]
-            # pad to the next power of two, repeating the first
-            # straggler in the padding lanes
-            R = 1 << max(int(np.ceil(np.log2(flagged.size))), 0)
-            R = min(R, nb)
-            batches = []
-            rem = flagged
-            while rem.size:
-                k = min(rem.size, R)
-                idx = np.full((R,), rem[0], dtype=np.int64)
-                idx[:k] = rem[:k]
-                batches.append(idx)
-                rem = rem[k:]
-            resc = np.zeros((nb,), np.int32)
-            for idx in batches:
-                ii = torch.as_tensor(idx, device=dev)
-                if shared_GhAb:
-                    sub = phase_c(P[ii], q[ii], G, h, A, b)
-                else:
-                    sub = phase_c(P[ii], q[ii], G[ii], h[ii], A[ii],
-                                  b[ii])
-                take = np.unique(idx, return_index=True)
-                src = torch.as_tensor(take[1], device=dev)
-                dst = torch.as_tensor(take[0], device=dev)
-                for k in out_keys:
-                    raw[k] = raw[k].clone()
-                    raw[k][dst] = sub[k][src]
-                resc[take[0]] = sub["iterations"].cpu().numpy()[take[1]]
-            raw["rescue_iterations"] = torch.as_tensor(resc, device=dev)
-            raw["iterations"] = raw["iterations"] + \
-                raw["rescue_iterations"]
+
+        def run_c(ii):
+            if shared_GhAb:
+                return phase_c(P[ii], q[ii], G, h, A, b)
+            return phase_c(P[ii], q[ii], G[ii], h[ii], A[ii], b[ii])
+
+        nflag = rescue_compacted(raw, out_keys, run_c, dev)
         if instrument:
             _sync()
             prof["c_iters"] = int(raw["rescue_iterations"].sum())
             prof["c_s"] = time.perf_counter() - t0
-            prof["c_instances"] = int(flagged.size)
+            prof["c_instances"] = nflag
             raw["profile"] = prof
         return raw
 

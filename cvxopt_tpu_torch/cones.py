@@ -9,7 +9,8 @@ operates on the last axis and takes any number of leading batch axes.
 The blocks of a cone vector are contiguous and in run order, so the
 functions build their result by concatenating per-block parts instead
 of writing into a copy.  The 's' eigenvalue problems (`max_step`,
-`max_step_eig`) run in float64 `torch.linalg.eigvalsh`/`eigh`.
+`max_step_eig`) go through `ops/jacobi.py` (float64 eigvalsh/eigh of
+the symmetrized block).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from cvxopt_tpu_torch._device import resolve_device
+from cvxopt_tpu_torch.ops.jacobi import eigh_accurate, eigvalsh_accurate
 
 Tensor = torch.Tensor
 
@@ -396,19 +398,12 @@ def _max_of(ts, x: Tensor) -> Tensor:
     return torch.amax(torch.stack(ts, dim=-1), dim=-1)
 
 
-def _sym64(X: Tensor) -> Tensor:
-    """(X + X')/2 in float64: the eigensolvers read one triangle, the
-    JAX package's eigh symmetrizes its input."""
-    X = X.double()
-    return 0.5 * (X + X.transpose(-1, -2))
-
-
 def max_step(x: Tensor, dims: ConeDims) -> Tensor:
     """min { t | x + t*e >= 0 }: 'l' -min(x), 'q' |x1| - x0,
-    's' -lambda_min (float64 eigvalsh)."""
+    's' -lambda_min."""
     ts = _lq_steps(x, dims)
     for run in dims.s_runs:
-        w = torch.linalg.eigvalsh(_sym64(sview(x, run))).to(x.dtype)
+        w = eigvalsh_accurate(sview(x, run))
         ts.append(torch.amax(-w[..., 0], dim=-1))
     return _max_of(ts, x)
 
@@ -420,8 +415,7 @@ def max_step_eig(x: Tensor, dims: ConeDims):
     ts = _lq_steps(x, dims)
     sig_parts, vparts = [], []
     for run in dims.s_runs:
-        w, V = torch.linalg.eigh(_sym64(sview(x, run)))
-        w, V = w.to(x.dtype), V.to(x.dtype)
+        w, V = eigh_accurate(sview(x, run))
         ts.append(torch.amax(-w[..., 0], dim=-1))
         sig_parts.append(_flat(w, 2))
         vparts.append(_flat(V, 3))

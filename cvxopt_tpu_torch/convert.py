@@ -41,3 +41,14 @@ def initvals_from_numpy(d, *, device, dtype=torch.float64):
         out["_valid"] = torch.as_tensor(np.asarray(d["_valid"]),
                                         dtype=torch.bool, device=device)
     return out
+
+
+def startvals_from_numpy(d, *, device, dtype=torch.float64):
+    """conelp warm start from a dict of iterates: returns (primalstart,
+    dualstart) with 'x', 's' / 'y', 'z' as `dtype` tensors, each None
+    when the dict holds none of its entries."""
+    def part(keys):
+        out = {k: torch.as_tensor(np.asarray(d[k]), dtype=dtype,
+                                  device=device) for k in keys if k in d}
+        return out or None
+    return part(("x", "s")), part(("y", "z"))

@@ -16,9 +16,8 @@ operand x may carry extra axes between the batch axes and the cone
 axis (`scale_rows` stacks the columns of a matrix there); W's entries
 are lined up with x's leading batch axes.
 
-The Gram eigendecompositions run in float64 `torch.linalg.eigh`
-(`gram_eigh_accurate`): f64 is native on the GPU, so the JAX package's
-Jacobi polish is not needed here.
+The Gram eigendecompositions go through `ops/jacobi.py`
+(`gram_eigh_accurate`, a float64 eigh).
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import (
     ConeDims, jdot, jnrm2, qview, sview, sdiagview, _flat, _bcast,
 )
+from cvxopt_tpu_torch.ops.jacobi import gram_eigh_accurate
 
 
 def _cat(parts):
@@ -57,15 +57,6 @@ def _floor_eigs(w: Tensor) -> Tensor:
     scale = torch.amax(torch.abs(w), dim=-1, keepdim=True)
     floor = torch.clamp(1e-28 * scale, min=1e-30)
     return torch.maximum(w, floor)
-
-
-def gram_eigh_accurate(M: Tensor):
-    """(w ascending, V) with M'M = V diag(w) V', by float64 eigh."""
-    M64 = M.double()
-    G0 = M64.transpose(-1, -2) @ M64
-    G0 = 0.5 * (G0 + G0.transpose(-1, -2))
-    w, V = torch.linalg.eigh(G0)
-    return w.to(M.dtype), V.to(M.dtype)
 
 
 def _chol_nan(A: Tensor) -> Tensor:

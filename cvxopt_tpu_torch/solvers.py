@@ -1,19 +1,31 @@
-"""cvxopt_tpu_torch.solvers — solver front door of the port (the cone-QP
-solver so far; see ROADMAP.md for the rest).
+"""cvxopt_tpu_torch.solvers — solver front door of the port.
 
+Twin of `cvxopt_tpu/solvers.py`: the cone solvers, their front ends and
+the shared `options` dict, read at call time:
+
+    options['show_progress']  bool (default: False)
     options['maxiters']       positive integer (default: 100)
     options['abstol']         scalar (default: 1e-7)
     options['reltol']         scalar (default: 1e-6)
     options['feastol']        scalar (default: 1e-7)
     options['refinement']     nonnegative integer (default: 0 when no
                               'q'/'s' cones, else 1)
+    options['kktreg']         static KKT regularization (default: None)
     options['factor_dtype']   'auto' (default; the working dtype),
                               'float32', 'rescue' or 'none'
+
+The nonlinear solvers (`cp`, `cpl`, `gp`) are not ported yet
+(ROADMAP.md, Queue 1 item 11).
 """
 
+from cvxopt_tpu_torch.conelp import conelp, make_conelp, \
+    make_conelp_cascade, make_conelp_ws, make_conelp_refresh
 from cvxopt_tpu_torch.coneqp import coneqp, make_coneqp, \
     make_coneqp_cascade
+from cvxopt_tpu_torch.frontends import lp, qp, socp, sdp
 
 options = {}
 
-__all__ = ["coneqp", "options", "make_coneqp", "make_coneqp_cascade"]
+__all__ = ["conelp", "coneqp", "lp", "qp", "socp", "sdp", "options",
+           "make_conelp", "make_coneqp", "make_coneqp_cascade",
+           "make_conelp_cascade", "make_conelp_ws", "make_conelp_refresh"]

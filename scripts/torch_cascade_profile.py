@@ -1,18 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time of the port's headline solve goes, on one GPU.
+"""Where the time of the port's cascades goes, on one GPU.
 
-    python3 scripts/torch_cascade_profile.py [--kktsolver chol2_inv]
+    python3 scripts/torch_cascade_profile.py [--path cascade]
+                                             [--kktsolver chol2_inv]
 
-Runs cvxopt_tpu_torch's make_coneqp_cascade(l=512, kktsolver,
-maxiters=50, 1e-7) on bench.py's scenario QPs (1024 instances, n=256,
-seeded numpy): one warm-up solve of the same batch (so the timed solves
-pay no first-use costs: allocations, lazily loaded kernels), three timed
-solves (wall seconds and aggregate IPM iterations/s each), then one
-solve under torch.profiler.  Prints one
-JSON line: the card (nvidia-smi name and power limit), the timed runs,
-device kernel time against the profiled wall time (the idle share),
-kernel launches, and the kernels that take the most device time.  The
-data is chip_smoke.py's, from its generator.
+Paths (the configurations and data of chip_smoke.py's phases):
+
+  cascade    make_coneqp_cascade(l=512, kktsolver, maxiters=50, 1e-7) on
+             1024 scenario QPs, n=256 (the default path)
+  socp       make_coneqp_cascade(q=(4,)*100, 'chol2_inv', 1e-7,
+             per-instance G/h) on 1024 SOC-constrained QPs, n=64
+  conelp_lp  make_conelp_cascade(l=512, 'chol2', 1e-7) on 1024 scenario
+             LPs, n=256
+  sdp        make_conelp_cascade(s=(50,), 1e-7/1e-6/1e-7) on 128 max-cut
+             SDP relaxations, m=50
+  library    no solve: CUDA-event times of the library calls that the
+             socp and sdp paths make once per loop pass, at their shapes
+             (batched torch.linalg.qr, eigh, eigvalsh, solve_triangular)
+
+One warm-up solve of the same batch (so the timed solves pay no
+first-use costs: allocations, lazily loaded kernels and library
+handles), three timed solves (wall seconds and aggregate IPM
+iterations/s each), then one solve under torch.profiler.  Prints one
+JSON line: the card (nvidia-smi name and power limit), the timed runs
+with their per-phase iterations and host syncs, device kernel time
+against the profiled wall time (the idle share), kernel launches, the
+kernels that take the most device time, and the device time by group:
+the hand-written kernels, the library's QR, eigh and Cholesky/LU/
+triangular kernels, matmuls, everything else.
 """
 
 import argparse
@@ -22,7 +37,99 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NB, N, REPS = 1024, 256, 3
+REPS = 3
+
+# device-kernel name fragments -> group of the breakdown
+GROUPS = (
+    ("hand_written", ("schur_assemble", "schur_factor", "solve_few",
+                      "solve_many")),
+    ("library_qr", ("geqr", "larf", "orgqr", "ormqr", "householder",
+                    "geqr2", "larft")),
+    ("library_eigh", ("syev", "sytr", "stedc", "steqr", "jacobi", "heev",
+                      "sytd", "latrd", "laed", "ormtr", "stedx")),
+    ("library_chol_lu_trsm", ("potr", "getr", "trsm", "trsv", "trmm",
+                              "triangular", "lu_", "cholesky")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sgemm", "dgemm", "bmm")),
+)
+
+
+def _group(name):
+    low = name.lower()
+    for grp, frags in GROUPS:
+        if any(f in low for f in frags):
+            return grp
+    return "other"
+
+
+def _setup(path, kktsolver):
+    """(solve, data on the card, description) for one path."""
+    import torch
+    import chip_smoke as cs
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.coneqp import make_coneqp_cascade
+    from cvxopt_tpu_torch.conelp import make_conelp_cascade
+    tol = dict(abstol=1e-7, reltol=1e-7, feastol=1e-7)
+    if path == "cascade":
+        solve = make_coneqp_cascade(
+            ConeDims(l=512), kktsolver=kktsolver, maxiters=50,
+            instrument=True, **tol)
+        return solve, cs.scenario_qps(1024, 256, seed=0), \
+            {"nb": 1024, "n": 256, "kktsolver": kktsolver}
+    if path == "socp":
+        solve = make_coneqp_cascade(
+            ConeDims(q=(4,) * 100), kktsolver="chol2_inv", maxiters=50,
+            shared_GhAb=False, instrument=True, **tol)
+        data, desc = cs.soc_qps(1024, seed=0), {"nb": 1024, "n": 64}
+    elif path == "conelp_lp":
+        solve = make_conelp_cascade(
+            ConeDims(l=512), kktsolver="chol2", maxiters=50,
+            instrument=True, **tol)
+        data, desc = cs.scenario_lps(1024, seed=0), {"nb": 1024, "n": 256}
+    else:
+        solve = make_conelp_cascade(
+            ConeDims(s=(50,)), maxiters=40, abstol=1e-7, reltol=1e-6,
+            feastol=1e-7, shared_GhAb=False, instrument=True)
+        data, desc = cs.mcsdp_batch(128, seed=0), {"nb": 128, "m": 50}
+    return solve, tuple(torch.as_tensor(u, device="cuda") for u in data), \
+        desc
+
+
+def _library_times():
+    """ms per call of the batched library calls on the socp and sdp
+    paths, on seeded normal data of the paths' shapes."""
+    import torch
+    from chip_smoke import time_ms
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, device="cuda", dtype=torch.float64,
+                           generator=g).to(dtype)
+
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    # socp phase B: kkt_cholqr's QR of [Gs; Rp] Q2, R only
+    M = rnd((1024, 464, 64), f32)
+    out["qr_r_1024x464x64_f32"] = time_ms(
+        lambda: torch.linalg.qr(M, mode="r"))
+    R = torch.linalg.qr(M, mode="r")[1]
+    eye = torch.eye(64, dtype=f32, device="cuda").expand(1024, 64, 64)
+    out["solve_triangular_eye_1024x64_f32"] = time_ms(
+        lambda: torch.linalg.solve_triangular(R, eye, upper=True))
+    # sdp: kkt_qr's reduced QR of the packed Gs (1275 x 50), phases A/B
+    for dt, tag in ((f32, "f32"), (f64, "f64")):
+        Gp = rnd((128, 1275, 50), dt)
+        out[f"qr_reduced_128x1275x50_{tag}"] = time_ms(
+            lambda: torch.linalg.qr(Gp, mode="reduced"), reps=5)
+    # sdp: the NT scaling's and max_step's symmetric eigenproblems
+    X = rnd((128, 50, 50), f64)
+    S = X @ X.transpose(1, 2) + torch.eye(50, dtype=f64, device="cuda")
+    out["eigh_128x50x50_f64"] = time_ms(
+        lambda: torch.linalg.eigh(S), reps=5)
+    out["eigvalsh_128x50x50_f64"] = time_ms(
+        lambda: torch.linalg.eigvalsh(S), reps=5)
+    out["cholesky_128x50x50_f64"] = time_ms(
+        lambda: torch.linalg.cholesky_ex(S), reps=5)
+    return out
 
 
 def _dev_time(evt):
@@ -34,7 +141,13 @@ def _dev_time(evt):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kktsolver", default="chol2_inv")
+    ap.add_argument("--path", default="cascade",
+                    choices=("cascade", "socp", "conelp_lp", "sdp",
+                             "library"))
+    ap.add_argument("--kktsolver", default="chol2_inv",
+                    help="the cascade path's strategy")
+    ap.add_argument("--reps", type=int, default=REPS,
+                    help="timed solves before the profiled one")
     args = ap.parse_args(argv)
 
     import torch
@@ -42,19 +155,20 @@ def main(argv=None):
         print("no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import scenario_qps, nvidia_smi
-    from cvxopt_tpu_torch.cones import ConeDims
-    from cvxopt_tpu_torch.coneqp import make_coneqp_cascade
+    from chip_smoke import nvidia_smi
+    import cvxopt_tpu_torch  # noqa: F401  (sets TF32 off)
     from torch.profiler import ProfilerActivity, profile
 
-    solve = make_coneqp_cascade(
-        ConeDims(l=2 * N), kktsolver=args.kktsolver, maxiters=50,
-        abstol=1e-7, reltol=1e-7, feastol=1e-7, instrument=True)
-    data = scenario_qps(NB, N, seed=0)
+    if args.path == "library":
+        print(json.dumps({"nvidia_smi": nvidia_smi(), "path": "library",
+                          "ms_per_call": _library_times()}), flush=True)
+        return 0
+
+    solve, data, desc = _setup(args.path, args.kktsolver)
     solve(*data)
 
     runs = []
-    for _ in range(REPS):
+    for _ in range(args.reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = solve(*data)
@@ -85,10 +199,15 @@ def main(argv=None):
     rows.sort(key=lambda r: -r["device_ms"])
     dev_ms = sum(r["device_ms"] for r in rows)
     launches = sum(r["count"] for r in rows)
+    groups = {}
+    for r in rows:
+        g = groups.setdefault(_group(r["name"]),
+                              {"device_ms": 0.0, "launches": 0})
+        g["device_ms"] += r["device_ms"]
+        g["launches"] += r["count"]
     summary = {
-        "nvidia_smi": nvidia_smi(), "nb": NB, "n": N,
-        "kktsolver": args.kktsolver,
-        "runs": runs,
+        "nvidia_smi": nvidia_smi(), "path": args.path, **desc,
+        "runs": runs, "groups": groups,
         "profiled_wall_s": pwall, "device_kernel_ms": dev_ms,
         "device_idle_share": 1.0 - dev_ms / 1e3 / pwall,
         "device_launches": launches,

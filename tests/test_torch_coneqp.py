@@ -10,12 +10,15 @@ cvxopt_tpu/coneqp.py on the CPU, on the same seeded numpy problems:
   - phase B warm-started from the JAX package's phase-A iterates: equal
     phase-B iterations;
   - a singular instance: status 4 in both, its neighbour optimal;
-  - the single-problem `coneqp`, and 'q'/'s' cones through the loop."""
+  - the single-problem `coneqp`, and 'q'/'s' cones through the loop with
+    several strategies, the rescue mode and the SOC cascade (B=4, n=16,
+    8 blocks of 4, per-instance G/h)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from cvxopt_tpu.cones import ConeDims as JDims
 from cvxopt_tpu.coneqp import make_coneqp as jmake, \
@@ -23,6 +26,10 @@ from cvxopt_tpu.coneqp import make_coneqp as jmake, \
 from cvxopt_tpu_torch import convert
 from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade, \
     coneqp
+
+# tiny tensors: one thread per test process, so that parallel test
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
 
 TOLS = dict(abstol=1e-7, reltol=1e-7, feastol=1e-7)
 
@@ -168,12 +175,12 @@ def test_coneqp_front_door_matches_jax():
                                ref["primal objective"], rtol=1e-9)
 
 
-def test_make_coneqp_qs_cones_matches_jax():
-    """'q' and 's' cones through the solver loop (the 's' update branch)
-    with the 'chol2' strategy: x >= 0, ||x|| <= 1 and
-    [[1 + x1, x2], [x2, 1 + x3]] PSD."""
+QS_DIMS = dict(l=3, q=(4,), s=(2,))
+
+
+def _qs_problem():
+    """x >= 0, ||x|| <= 1 and [[1 + x1, x2], [x2, 1 + x3]] PSD."""
     n = 3
-    dims = dict(l=3, q=(4,), s=(2,))
     G = np.concatenate([-np.eye(n),
                         np.vstack([np.zeros((1, n)), -np.eye(n)]),
                         np.array([[-1.0, 0, 0], [0, -1, 0], [0, -1, 0],
@@ -183,10 +190,19 @@ def test_make_coneqp_qs_cones_matches_jax():
     F = rng.standard_normal((2, n, n))
     P = F @ F.transpose(0, 2, 1) + np.eye(n)
     q = rng.standard_normal((2, n)) * 3
-    A, b = np.zeros((0, n)), np.zeros(0)
-    data = (P, q, G, h, A, b)
-    ref = _jax_batched(jmake(JDims(**dims), kktsolver="chol2"), data, True)
-    out = make_coneqp(convert.dims_from(JDims(**dims)), kktsolver="chol2",
+    return P, q, G, h, np.zeros((0, n)), np.zeros(0)
+
+
+@pytest.mark.parametrize("kktsolver", ["chol2", "default", "ldl",
+                                       "cholqr"])
+def test_make_coneqp_qs_cones_matches_jax(kktsolver):
+    """'q' and 's' cones through the solver loop (the 's' update
+    branch): 'chol2', the default there ('chol'), 'ldl' and 'cholqr'."""
+    dims = QS_DIMS
+    data = _qs_problem()
+    ref = _jax_batched(jmake(JDims(**dims), kktsolver=kktsolver), data,
+                       True)
+    out = make_coneqp(convert.dims_from(JDims(**dims)), kktsolver=kktsolver,
                       device="cpu")(*_port(data))
     np.testing.assert_array_equal(out["status"].numpy(),
                                   np.asarray(ref["status"]))
@@ -221,9 +237,16 @@ def test_make_coneqp_rescue_mode_matches_jax():
 ])
 def test_qs_cones_refuse_cholqr_modes_up_front(build):
     """The rescue mode and the cascade factor 'q'/'s' cones with
-    'cholqr', which is not ported: they refuse when built."""
-    with pytest.raises(NotImplementedError, match="cholqr"):
-        build(convert.dims_from(JDims(l=3, q=(4,), s=(2,))))
+    'cholqr': once refused when built, they now build and solve the
+    problem of test_make_coneqp_qs_cones_matches_jax."""
+    solve = build(convert.dims_from(JDims(**QS_DIMS)))
+    P, q, G, h, A, b = _port(_qs_problem())
+    out = solve(P, q, G, h, A, b)
+    assert (out["status"].numpy() == 0).all()
+    ref = make_coneqp(convert.dims_from(JDims(**QS_DIMS)),
+                      kktsolver="chol2", device="cpu")(P, q, G, h, A, b)
+    np.testing.assert_allclose(out["x"].numpy(), ref["x"].numpy(),
+                               atol=1e-6)
 
 
 def test_coneqp_warm_start_matches_jax():
@@ -243,3 +266,55 @@ def test_coneqp_warm_start_matches_jax():
     with pytest.raises(ValueError):
         coneqp(P[0], q[0], G, h, A=A, b=b, device="cpu",
                initvals={"s": -np.ones(32)})
+
+
+def soc_batch(nb, n, nq, mq, seed=0):
+    """bench.py bench_socp's generator in seeded numpy: per block
+    ||D_i x + f_i|| <= g_i'x + 1 (x = 0 strictly feasible), G rows
+    [-g_i'; -D_i], h = [1; f_i]; per-instance G and h."""
+    rng = np.random.default_rng(seed)
+    m = nq * mq
+    F = rng.standard_normal((nb, n, n // 4)) / np.sqrt(n)
+    P = F @ F.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = -rng.uniform(0.0, 0.1, (nb, n))
+    G = 0.3 * rng.standard_normal((nb, m, n))
+    h = 0.1 * rng.standard_normal((nb, nq, mq))
+    h[:, :, 0] = 1.0
+    return (P, q, G, h.reshape(nb, m), np.zeros((nb, 0, n)),
+            np.zeros((nb, 0)))
+
+
+def test_soc_cascade_matches_jax():
+    """The SOCP cascade at a small size (n = 16, 8 blocks of 4, B = 4,
+    per-instance G/h): phase A in f32 'chol2_inv', phase B in f32
+    'cholqr_inv' with two refinement rounds, phase C 'chol2'."""
+    data = soc_batch(4, 16, 8, 4)
+    jd = JDims(q=(4,) * 8)
+    kw = dict(kktsolver="chol2_inv", maxiters=50, shared_GhAb=False,
+              **TOLS)
+    j = jcascade(jd, **kw)(*map(jnp.asarray, data))
+    t = make_coneqp_cascade(convert.dims_from(jd), device="cpu",
+                            **kw)(*_port(data))
+    assert (np.asarray(j["status"]) == 0).all()
+    assert (t["status"].numpy() == 0).all()
+    assert max(float(t[k].max()) for k in ("gap", "pres", "dres")) <= 1e-7
+    assert np.abs(t["x"].numpy() - np.asarray(j["x"])).max() <= 1e-6
+    di = t["iterations"].numpy() - np.asarray(j["iterations"])
+    assert np.abs(di).max() <= 1
+
+
+def test_make_coneqp_rescue_mode_qs_cones_matches_jax():
+    """factor_dtype='rescue' on q/s cones swaps the f32 factor to
+    'cholqr' (relres trigger off)."""
+    data = _qs_problem()
+    kw = dict(kktsolver="chol2", factor_dtype="rescue", refinement=2)
+    ref = _jax_batched(jmake(JDims(**QS_DIMS), **kw), data, True)
+    out = make_coneqp(convert.dims_from(JDims(**QS_DIMS)), device="cpu",
+                      **kw)(*_port(data))
+    np.testing.assert_array_equal(out["status"].numpy(),
+                                  np.asarray(ref["status"]))
+    assert (out["status"].numpy() == 0).all()
+    di = out["iterations"].numpy() - np.asarray(ref["iterations"])
+    assert np.abs(di).max() <= 1
+    np.testing.assert_allclose(out["x"].numpy(), np.asarray(ref["x"]),
+                               atol=1e-6)

@@ -10,6 +10,10 @@ import torch
 from cvxopt_tpu import cones as jc
 from cvxopt_tpu_torch import cones as tc
 
+# tiny tensors: one thread per test process, so that parallel test
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 DIMS = dict(l=3, q=(4, 4, 3), s=(3, 3, 2))
 JD, TD = jc.ConeDims(**DIMS), tc.ConeDims(**DIMS)
 B = 3

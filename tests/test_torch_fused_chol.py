@@ -18,6 +18,10 @@ import jax.experimental.pallas as pl
 
 from cvxopt_tpu_torch.ops import fused_chol as fc
 
+# tiny tensors: one thread per test process, so that parallel test
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture()
 def pallas_interpret():

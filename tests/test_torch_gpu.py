@@ -13,6 +13,11 @@ import pytest
 import torch
 
 from cvxopt_tpu_torch.ops import fused_chol as fc
+from cvxopt_tpu_torch import kkt as tk
+from cvxopt_tpu_torch import scaling as tsc
+from cvxopt_tpu_torch.cones import ConeDims
+from cvxopt_tpu_torch.coneqp import make_coneqp_cascade
+from cvxopt_tpu_torch.conelp import make_conelp_cascade
 
 # float32 and float64 tolerances on relative Frobenius error (the
 # kernels sum in another order than the plain version)
@@ -156,3 +161,139 @@ def test_solve_at_n_25600(cuda_device):
     x = fc.fused_cholesky_solve(L, Dinv, rhs)
     xr = fc.fused_cholesky_solve_ref(L, Dinv, rhs)
     assert _rel(x, xr) <= 1e-12
+
+
+def _interior(rng, d, B):
+    v = np.zeros((B, d.cdim))
+    v[:, :d.l] = rng.uniform(0.5, 2, (B, d.l))
+    off = d.l
+    for m in d.q:
+        v[:, off] = 1.0 + rng.uniform(0, 1, B)
+        v[:, off + 1:off + m] = \
+            rng.standard_normal((B, m - 1)) * 0.3 / np.sqrt(m)
+        off += m
+    for m in d.s:
+        X = rng.standard_normal((B, m, m))
+        v[:, off:off + m * m] = \
+            (X @ X.transpose(0, 2, 1) + np.eye(m)).reshape(B, -1)
+        off += m * m
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fd,tol", [(None, 1e-9), ("float32", 1e-4)])
+@pytest.mark.parametrize("name", ["chol2", "chol2_inv"])
+@pytest.mark.parametrize("n", [40, 64])
+def test_kkt_chol2_qs_branch_on_kernels(cuda_device, n, name, fd, tol):
+    """kkt_chol2 on 'q'/'s' cones factors S = H + Gs'Gs in the fused
+    kernels (Gt = Gs', dinv2 = 1; n = 40 is padded to 64): the solve on
+    the card against the same call on CPU tensors (the kernels' plain
+    versions), with one W handed to both."""
+    dims = ConeDims(l=3, q=(4, 4, 5), s=(3,))
+    rng = np.random.default_rng(11)
+    B, m = 5, dims.cdim
+    F = rng.standard_normal((B, n, n)) / np.sqrt(n)
+    P = torch.as_tensor(F @ F.transpose(0, 2, 1) + 0.1 * np.eye(n))
+    G = torch.as_tensor(rng.standard_normal((B, m, n)))
+    A = torch.as_tensor(rng.standard_normal((1, n)))
+    s, z = (torch.as_tensor(_interior(rng, dims, B)) for _ in range(2))
+    W, _ = tsc.compute_scaling(s, z, dims)
+    rhs = [torch.as_tensor(rng.standard_normal((B, k))) for k in (n, 1, m)]
+    ref = tk.get_kktsolver(name, G, dims, A, factor_dtype=fd)(W, P)(*rhs)
+
+    def cu(t):
+        return t.to(cuda_device)
+
+    Wc = {k: ([cu(u) for u in v] if isinstance(v, list) else cu(v))
+          for k, v in W.items()}
+    fc.reset_launch_counts()
+    out = tk.get_kktsolver(name, cu(G), dims, cu(A), factor_dtype=fd)(
+        Wc, cu(P))(*map(cu, rhs))
+    counts = fc.launch_counts()
+    assert counts["fused_schur_cholesky"] == 1
+    assert counts["fused_cholesky_solve"] >= 1
+    for u, v in zip(out, ref):
+        scale = max(1.0, float(v.abs().max()))
+        assert float((u.cpu() - v).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_small_socp_on_card_matches_cpu(cuda_device):
+    """The SOC cascade (n = 16, 8 blocks of 4, B = 8) on the card against
+    the CPU run: all solved at 1e-7, x within 1e-6."""
+    rng = np.random.default_rng(12)
+    nb, n, nq, mq = 8, 16, 8, 4
+    m = nq * mq
+    F = rng.standard_normal((nb, n, n // 4)) / np.sqrt(n)
+    P = F @ F.transpose(0, 2, 1) + 0.1 * np.eye(n)
+    q = -rng.uniform(0.0, 0.1, (nb, n))
+    G = 0.3 * rng.standard_normal((nb, m, n))
+    h = 0.1 * rng.standard_normal((nb, nq, mq))
+    h[:, :, 0] = 1.0
+    data = (P, q, G, h.reshape(nb, m), np.zeros((nb, 0, n)),
+            np.zeros((nb, 0)))
+    kw = dict(kktsolver="chol2_inv", maxiters=50, abstol=1e-7,
+              reltol=1e-7, feastol=1e-7, shared_GhAb=False)
+    dims = ConeDims(q=(mq,) * nq)
+    ref = make_coneqp_cascade(dims, device="cpu", **kw)(*data)
+    fc.reset_launch_counts()
+    out = make_coneqp_cascade(dims, device=cuda_device, **kw)(*data)
+    assert fc.launch_counts()["fused_schur_cholesky"] > 0
+    assert (out["status"] == 0).all() and (ref["status"] == 0).all()
+    assert max(float(out[k].max()) for k in ("gap", "pres", "dres")) <= 1e-7
+    assert float((out["x"].cpu() - ref["x"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_small_lp_on_card_matches_cpu(cuda_device):
+    """The cone-LP cascade on 'l' cones (n = 24, B = 8, shared G/h/A/b)
+    on the card against the CPU run."""
+    rng = np.random.default_rng(13)
+    nb, n = 8, 24
+    c = -rng.uniform(0.0, 0.1, (nb, n))
+    eye = np.eye(n)
+    data = (c, np.concatenate([-eye, eye]),
+            np.concatenate([np.zeros(n), np.ones(n)]), np.ones((1, n)),
+            np.ones(1))
+    kw = dict(kktsolver="chol2", maxiters=50, abstol=1e-7, reltol=1e-7,
+              feastol=1e-7)
+    dims = ConeDims(l=2 * n)
+    ref = make_conelp_cascade(dims, device="cpu", **kw)(*data)
+    fc.reset_launch_counts()
+    out = make_conelp_cascade(dims, device=cuda_device, **kw)(*data)
+    assert fc.launch_counts()["fused_schur_cholesky_batched"] > 0
+    assert (out["status"] == 0).all() and (ref["status"] == 0).all()
+    assert max(float(out[k].max()) for k in ("gap", "pres", "dres")) <= 1e-7
+    assert float((out["x"].cpu() - ref["x"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_adaptive_factor_on_card_matches_cpu(cuda_device):
+    """factor_dtype='adaptive' takes its float32 factor from the fused
+    kernels on the card: a well-conditioned and an ill-conditioned
+    instance against the same call on CPU tensors."""
+    n, m = 24, 8
+    dims = ConeDims(l=m)
+    rng = np.random.default_rng(14)
+    G = torch.as_tensor(rng.standard_normal((m, n)))
+    A = torch.as_tensor(rng.standard_normal((1, n)))
+    P = torch.eye(n, dtype=torch.float64).expand(2, n, n)
+    s, z = np.ones((2, m)), np.ones((2, m))
+    s[1], z[1] = np.logspace(-7, 0, m), np.logspace(0, -7, m)
+    W, _ = tsc.compute_scaling(torch.as_tensor(s), torch.as_tensor(z), dims)
+    rhs = [torch.as_tensor(rng.standard_normal((2, k))) for k in (n, 1, m)]
+    ref = tk.get_kktsolver("chol2", G, dims, A,
+                           factor_dtype="adaptive")(W, P)(*rhs)
+
+    def cu(t):
+        return t.to(cuda_device)
+
+    Wc = {k: ([cu(u) for u in v] if isinstance(v, list) else cu(v))
+          for k, v in W.items()}
+    fc.reset_launch_counts()
+    out = tk.get_kktsolver("chol2", cu(G), dims, cu(A),
+                           factor_dtype="adaptive")(Wc, cu(P))(*map(cu, rhs))
+    assert fc.launch_counts()["fused_schur_cholesky"] == 1
+    for u, v in zip(out, ref):
+        scale = max(1.0, float(v.abs().max()))
+        assert float((u.cpu() - v).abs().max()) <= 1e-4 * scale

@@ -19,8 +19,14 @@ from cvxopt_tpu_torch.cones import cone_identity
 from cvxopt_tpu_torch.scaling import identity_scaling
 from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade, \
     coneqp
+from cvxopt_tpu_torch import conelp as tlp
+from cvxopt_tpu_torch import solvers
 from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops import _build
+
+# tiny tensors: one thread per test process, so that parallel test
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "cvxopt_tpu_torch")
@@ -54,6 +60,11 @@ def _imports(path):
 def test_no_jax_imports():
     srcs = list(_sources())
     assert len(srcs) > 10
+    names = {os.path.relpath(p, PKG) for p in srcs}
+    for mod in ("conelp.py", "frontends.py", "solvers.py", "kkt.py",
+                os.path.join("ops", "blockinv.py"),
+                os.path.join("ops", "jacobi.py")):
+        assert mod in names
     bad = [(os.path.relpath(p, ROOT), m) for p in srcs
            for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
@@ -84,6 +95,17 @@ def test_entry_points_raise_without_card(no_card):
         lambda: make_coneqp(dims),
         lambda: make_coneqp_cascade(dims),
         lambda: coneqp(np.eye(2), np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: tlp.make_conelp(dims),
+        lambda: tlp.make_conelp_cascade(dims),
+        lambda: tlp.make_conelp_ws(dims),
+        lambda: tlp.make_conelp_ws_detect(dims),
+        lambda: tlp.make_conelp_refresh(dims),
+        lambda: solvers.conelp(np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: solvers.lp(np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: solvers.qp(np.eye(2), np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: solvers.socp(np.ones(2), Gq=[-np.eye(2)], hq=[np.zeros(2)]),
+        lambda: solvers.sdp(np.ones(1), Gs=[-np.ones((1, 1))],
+                            hs=[np.zeros((1, 1))]),
         lambda: cone_identity(dims),
         lambda: identity_scaling(dims),
         lambda: fc.fused_schur_cholesky(torch.eye(64), torch.ones(64, 2),

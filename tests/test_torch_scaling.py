@@ -19,6 +19,10 @@ from cvxopt_tpu_torch.cones import ConeDims as TDims
 
 from test_torch_cones import _interior, _diag_interior
 
+# tiny tensors: one thread per test process, so that parallel test
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 DIMS = dict(l=3, q=(4, 3), s=(3, 2))
 JD, TD = JDims(**DIMS), TDims(**DIMS)
 B = 2

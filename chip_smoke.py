@@ -30,6 +30,22 @@ Phases, each printing one JSON line:
   sdp      make_conelp_cascade(s=(50,), 1e-7/1e-6/1e-7, per-instance
            G/h) on 128 max-cut SDP relaxations with m=50: same checks
            (no hand-written kernel on this path: the default 'qr')
+  cpl      cvxprog.make_cpl(l=512, mnl=1, 'chol2') on 1024 analytic-
+           centering problems (acent2, n=256 plus the epigraph variable)
+           in f64: every status 0, pres/dres <= 1e-7, gap <= 1e-7 or
+           relgap <= 1e-6, the unbatched kernels launched in f64 at
+           n=320 (padded), m=513, nrhs 1 and 64, and the first 16
+           instances equal to the port's CPU run of those 16 alone
+           (status, iterations, x within 1e-6)
+  nonlinear_front  one problem each through the front doors, on the
+           card: gp floor planning against its closed form; cp acent
+           (m=100, n=1000) against the CPU run; cpl with a Sherman-
+           Morrison kktsolver, dense and matrix-free (n=4096), against
+           the dense default path; kkt_structured.l1 (m=2000, n=500:
+           operator G, callable kktsolver in conelp) against the CPU run;
+           kkt_structured.l1regls (m=200, n=2000: operator P/G, Woodbury
+           kktsolver in coneqp) against its optimality conditions and
+           the CPU run
 
 Each solver phase sets the kernels' launch counts to 0 just before its
 timed solve and reads them just after.  Then a `{"kernels": [...]}` line
@@ -48,12 +64,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
-          "conelp_lp", "sdp")
+          "conelp_lp", "sdp", "cpl", "nonlinear_front")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
-# the tensor cores, and HBM3 bandwidth
+# the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
+# tensor-core (DMMA) peak, which the f64 rows' bounds use although the
+# kernels run FP64 FMAs (34 TFLOP/s), not DMMA
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+FLOP_RATE = {4: "FP32 without tensor cores, 67 TFLOP/s",
+             8: "FP64 tensor cores (DMMA), 67 TFLOP/s; the kernels use "
+                "FP64 FMA (34 TFLOP/s), not DMMA"}
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -177,6 +198,32 @@ def scenario_lps(nb, n=256, seed=0):
     return (c, np.concatenate([-eye, eye]),
             np.concatenate([np.zeros(n), np.ones(n)]), np.ones((1, n)),
             np.ones(1))
+
+
+def acent2_batch(nb, n=256, p=64, seed=0):
+    """chap9/acent2.py's problem in the epigraph form `cp` builds, for
+    `make_cpl`: x = [u; t], minimize t s.t. -sum log(1 - u_i^2) - t <= 0,
+    -1 <= u <= 1 (a zero t column), A u = b with A ~ N(0, 1) (p, n) shared
+    and b = A u_feas per instance, u_feas ~ U(-0.5, 0.5); x0 = [0; 1].
+    Returns the data (c, x0, G, h, A, b) and F of one instance."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    Au = rng.standard_normal((p, n))
+    b = rng.uniform(-0.5, 0.5, (nb, n)) @ Au.T
+    eye = np.eye(n)
+    G = np.concatenate([np.concatenate([eye, -eye]), np.zeros((2 * n, 1))],
+                       axis=1)
+    c = np.zeros(n + 1)
+    c[n] = 1.0
+    x0 = np.zeros(n + 1)
+    x0[n] = 1.0
+
+    def F(x):
+        return (-torch.log(1.0 - x[:n] ** 2).sum() - x[n]).reshape(1)
+
+    return (c, x0, G, np.ones(2 * n),
+            np.concatenate([Au, np.zeros((p, 1))], axis=1), b), F
 
 
 def mcsdp_batch(nb, m=50, seed=0):
@@ -455,6 +502,47 @@ def phase_kernels(log, results):
         bound_ms=bound, bound_by=by)
     del P, Gt, d2, L7, D7, ref7
 
+    # -- the cpl path's shapes, f64: per-instance Gt = Gs' of [Df; G]
+    # (1024, 320, 513: n = 257 padded to 320, m = 1 + 512), P = H padded
+    # with an identity, dinv2 = 1; solves at nrhs = 1 (every KKT solve)
+    # and nrhs = 64 (S^{-1} A', once per factor)
+    Bc, nc, mc = 1024, 320, 513
+    P, Gt, d2 = kernel_data(Bc, nc, mc, f64, True, seed=7)
+    d2 = torch.ones_like(d2)
+    (L9, D9), ref9, e9 = _check_factor(k1, P, Gt, d2, "float64",
+                                       "fused_schur_cholesky (cpl)", False)
+    bound, by = _factor_bound(Bc, nc, mc, False, 8)
+    results["fused_schur_cholesky/cpl"] = dict(
+        name="fused_schur_cholesky", replaces=rep + "129",
+        shape=[Bc, nc, mc], dtype="float64", rel_fro_err=e9,
+        max_abs_err=max_abs(L9, ref9[0]),
+        ms=time_ms(lambda: k1(P, Gt, d2)),
+        plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
+        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
+    r = results["fused_schur_cholesky/cpl"]
+    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+    del P, Gt, d2, ref9
+    for key, nrhs in (("fused_cholesky_solve/cpl", 1),
+                      ("fused_cholesky_solve/cpl_nrhs64", 64)):
+        rhs = torch.randn((Bc, nrhs, nc), device="cuda", dtype=f64,
+                          generator=g)
+        s9 = lambda: fc.fused_cholesky_solve(L9, D9, rhs)
+        x, xr = s9(), fc.fused_cholesky_solve_ref(L9, D9, rhs)
+        err = rel_fro(x, xr)
+        check(err <= TOL["float64"], f"{key} disagrees: {err}")
+        bound, by = _solve_bound(Bc, nc, nrhs, False, 8)
+        results[key] = dict(
+            name="fused_cholesky_solve", replaces=rep + "194",
+            shape=[Bc, nc, nrhs], dtype="float64", rel_fro_err=err,
+            max_abs_err=max_abs(x, xr), ms=time_ms(s9),
+            plain_ms=time_ms(
+                lambda: fc.fused_cholesky_solve_ref(L9, D9, rhs)),
+            library_ms=time_ms(lambda: torch.cholesky_solve(
+                rhs.transpose(1, 2), L9)),
+            bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
+    del L9, D9, rhs, x, xr
+
     # -- float64 at B = 64, with one non-PD instance (must be NaN)
     B64 = 64
     f64errs = {}
@@ -488,6 +576,7 @@ def phase_kernels(log, results):
     for k, r in results.items():
         r.setdefault("name", k)
     for r in results.values():
+        r.setdefault("flop_rate", FLOP_RATE[4])
         for row in (r, r.get("nrhs1")):
             if row:
                 row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -708,6 +797,210 @@ def phase_sdp(log, results):
         extra={"m": 50, "cone": "s=(50,)"})
 
 
+def phase_cpl(log, results):
+    """The batched nonlinear path: make_cpl with 'chol2' factors S = H +
+    [Df; G]' W^-2 [Df; G] per instance in the unbatched kernel pair."""
+    import numpy as np
+    import torch
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.cvxprog import make_cpl
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    nb, n, ncheck = 1024, 256, 16
+    dims = ConeDims(l=2 * n, mnl=1)
+    data, F = acent2_batch(nb, n, seed=0)
+    warm, _ = acent2_batch(8, n, seed=1)
+    gpu = make_cpl(dims, F, kktsolver="chol2")
+    gpu(*(torch.as_tensor(u, device="cuda") for u in warm))
+    data = tuple(torch.as_tensor(u, device="cuda") for u in data)
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gpu(*data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, kcounts = fc.launch_counts(), fc.solve_kernel_counts()
+    iters = int(out["iterations"].sum())
+    conv = (out["gap"] <= 1e-7) | (out["relgap"] <= 1e-6)
+    rec = {"phase": "cpl", "instances": nb, "n": n + 1, "mnl": 1,
+           "cone": "l=512", "p": 64, "kktsolver": "chol2",
+           "solved": int((out["status"] == 0).sum()),
+           "max_gap": float(out["gap"].max()),
+           "max_relgap": float(out["relgap"].max()),
+           "max_pres": float(out["pres"].max()),
+           "max_dres": float(out["dres"].max()),
+           "iterations": iters,
+           "max_iterations": int(out["iterations"].max()),
+           "wall_s": wall, "ipm_iters_per_s": iters / wall,
+           "passes": out["passes"], "host_syncs": out["host_syncs"],
+           "host_syncs_per_pass": out["host_syncs"] / out["passes"],
+           "launches": counts, "solve_kernels": kcounts}
+    check(rec["solved"] == nb, f"cpl: {nb - rec['solved']} unsolved")
+    check(bool(conv.all()), f"cpl: gap {rec['max_gap']} relgap "
+          f"{rec['max_relgap']}")
+    check(max(rec["max_pres"], rec["max_dres"]) <= 1e-7,
+          f"cpl residuals {rec['max_pres']} {rec['max_dres']}")
+    few = kcounts["fused_cholesky_solve"]
+    for key, cnt in (("fused_schur_cholesky/cpl",
+                      counts["fused_schur_cholesky"]),
+                     ("fused_cholesky_solve/cpl", few["solve_few"]),
+                     ("fused_cholesky_solve/cpl_nrhs64",
+                      few["solve_many"])):
+        check(cnt > 0, f"cpl did not launch {key}")
+        if key in results:
+            results[key]["launches"] = cnt
+            results[key].setdefault("paths", []).append("cpl")
+    # the first instances against the port's f64 run of them on the CPU
+    cpu = make_cpl(dims, F, kktsolver="chol2", device="cpu")
+    c, x0, G, h, A, b = (u.cpu() for u in data)
+    t0 = time.perf_counter()
+    ref = cpu(c, x0, G, h, A, b[:ncheck])
+    dx = float((out["x"][:ncheck].cpu() - ref["x"]).abs().max())
+    rec.update(cpu_instances=ncheck, cpu_s=time.perf_counter() - t0,
+               x_vs_cpu_f64_max_abs=dx,
+               cpu_status=ref["status"].tolist(),
+               cpu_iterations=ref["iterations"].tolist(),
+               nvidia_smi=nvidia_smi())
+    check(np.array_equal(out["status"][:ncheck].cpu().numpy(),
+                         ref["status"].numpy()), "cpl: CPU statuses differ")
+    check(np.array_equal(out["iterations"][:ncheck].cpu().numpy(),
+                         ref["iterations"].numpy()),
+          "cpl: CPU iteration counts differ")
+    check(dx <= 1e-6, f"cpl: x differs from the CPU f64 solve: {dx}")
+    emit(rec, log)
+
+
+def _front(name, run, rec):
+    """Time one front-door solve on the card; returns its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = run()
+    torch.cuda.synchronize()
+    rec[name] = {"status": sol["status"], "iterations": sol["iterations"],
+                 "wall_s": time.perf_counter() - t0}
+    check(sol["status"] == "optimal", f"{name}: {sol['status']}")
+    return sol
+
+
+def _vs_cpu(name, gpu, cpu, rec, key="x", tol=1e-6):
+    dx = float((gpu[key].cpu() - cpu[key]).abs().max())
+    rec[name].update(cpu_iterations=cpu["iterations"],
+                     x_vs_cpu_max_abs=dx)
+    check(cpu["status"] == "optimal", f"{name}: CPU run {cpu['status']}")
+    check(gpu["iterations"] == cpu["iterations"],
+          f"{name}: iterations differ from the CPU run")
+    check(dx <= tol, f"{name}: x differs from the CPU run by {dx}")
+
+
+def phase_nonlinear_front(log, results):
+    """One problem each through cvxopt_tpu_torch.solvers / kkt_structured
+    on the card (the tests' cases at larger sizes).  The GP is solved at
+    1e-11 tolerances: its optimum is flat, and (h, w, d) reach 1e-5
+    (relative) of the closed form only there."""
+    import numpy as np
+    import torch
+    from cvxopt_tpu_torch import solvers, kkt_structured
+    rec = {"phase": "nonlinear_front"}
+    cpu = dict(device="cpu")
+
+    # gp: floor planning (chap9/gp.py), closed form (5, 10, 20)/sqrt(3)
+    K = [1, 2, 1, 1, 1, 1, 1]
+    Fg = np.array([[-1., 1., 1., 0., -1., 1., 0., 0.],
+                   [-1., 1., 0., 1., 1., -1., 1., -1.],
+                   [-1., 0., 1., 1., 0., 0., -1., 1.]]).T
+    g = np.log(np.array([1.0, 2 / 100.0, 2 / 100.0, 1 / 1000.0, 0.5,
+                         1 / 2.0, 0.5, 1 / 2.0]))
+    tight = dict(options=dict(abstol=1e-11, reltol=1e-11, feastol=1e-11))
+    sol = _front("gp", lambda: solvers.gp(K, Fg, g, **tight), rec)
+    hwd = np.exp(sol["x"].cpu().numpy())
+    err = float(np.abs(hwd / (np.array([5., 10., 20.]) / np.sqrt(3)) - 1)
+                .max())
+    rec["gp"]["hwd_rel_err"] = err
+    check(err <= 1e-5, f"gp: (h, w, d) {hwd} off the closed form by {err}")
+    _vs_cpu("gp", sol, solvers.gp(K, Fg, g, **tight, **cpu), rec)
+
+    # cp: analytic centering (chap9/acent.py) at m = 100, n = 1000
+    rng = np.random.default_rng(0)
+    m, n = 100, 1000
+    y = rng.standard_normal(m)
+    A = rng.standard_normal((m, n))
+    A = A + np.outer(y, rng.uniform(0, 1, n) - A.T @ y) / (y @ y)
+    b = A @ rng.uniform(0, 1, n)
+
+    def Fa(x):
+        return (-torch.log(x).sum()).reshape(1)
+
+    sol = _front("cp_acent", lambda: solvers.cp(Fa, np.ones(n), A=A, b=b),
+                 rec)
+    _vs_cpu("cp_acent", sol, solvers.cp(Fa, np.ones(n), A=A, b=b, **cpu),
+            rec)
+
+    # cpl: min 1'x s.t. sum(exp(x)) <= n, x >= -2, with the Sherman-
+    # Morrison kktsolver(x, znl, W) of tests/test_cvxprog.py, dense and
+    # matrix-free, against the dense default path, n = 4096 (the test's
+    # bound 10 becomes n: at this n no x >= -2 meets 10); the optimum is
+    # the bound x = -2
+    n = 4096
+    c, G, h = np.ones(n), -np.eye(n), 2.0 * np.ones(n)
+
+    def Fe(x):
+        return (torch.exp(x).sum() - float(n)).reshape(1)
+
+    def sm_kkt(x, znl, W):
+        ex = torch.exp(x)
+        dnli2 = W["dnli"][0] ** 2
+        di2 = W["di"] ** 2
+        Dinv = 1.0 / (znl[0] * ex + di2)
+        u = torch.sqrt(dnli2) * ex
+        denom = 1.0 + (u * Dinv * u).sum()
+
+        def solve(bx, by, bz):
+            t = Dinv * (bx + ex * (dnli2 * bz[0]) - di2 * bz[1:])
+            ux = t - Dinv * u * ((u * t).sum() / denom)
+            return ux, by, torch.cat([W["dnli"] * ((ex * ux).sum() - bz[:1]),
+                                      W["di"] * (-ux - bz[1:])])
+
+        return solve
+
+    dense = _front("cpl_dense", lambda: solvers.cpl(c, Fe, np.zeros(n), G,
+                                                    h), rec)
+    err = float((dense["x"] + 2.0).abs().max())
+    rec["cpl_dense"]["x_vs_closed_form_max_abs"] = err
+    check(err <= 1e-5, f"cpl_dense: x off the bound -2 by {err}")
+    for name, mf in (("cpl_sherman_morrison", False),
+                     ("cpl_matrix_free", True)):
+        sol = _front(name, lambda: solvers.cpl(
+            c, Fe, np.zeros(n), G, h, kktsolver=sm_kkt, matrix_free=mf),
+            rec)
+        dx = float((sol["x"] - dense["x"]).abs().max())
+        rec[name]["x_vs_dense_max_abs"] = dx
+        check(dx <= 1e-6, f"{name}: x differs from the dense path by {dx}")
+
+    # kkt_structured.l1: operator G, callable kktsolver in conelp
+    P = rng.standard_normal((2000, 500))
+    q = rng.standard_normal(2000)
+    sol = _front("l1", lambda: kkt_structured.l1(P, q), rec)
+    _vs_cpu("l1", sol, kkt_structured.l1(P, q, **cpu), rec, key="u")
+
+    # kkt_structured.l1regls: operator P/G, Woodbury kktsolver in coneqp
+    A = rng.standard_normal((200, 2000))
+    y = rng.standard_normal(200)
+    sol = _front("l1regls", lambda: kkt_structured.l1regls(A, y), rec)
+    u = sol["u"].cpu().numpy()
+    gr = 2 * A.T @ (A @ u - y)
+    # away from the kink g = -sign(u); entries at the solver's
+    # convergence scale only satisfy |g| <= 1 (tests/test_custom_kkt.py)
+    on = np.abs(u) > 1e-3
+    kkt_err = max(float(np.abs(gr[on] + np.sign(u[on])).max(initial=0.0)),
+                  float(np.abs(gr[~on]).max(initial=0.0)) - 1.0)
+    rec["l1regls"].update(nonzeros=int(on.sum()), optimality_err=kkt_err)
+    check(kkt_err < 1e-4, f"l1regls: optimality conditions off by {kkt_err}")
+    _vs_cpu("l1regls", sol, kkt_structured.l1regls(A, y, **cpu), rec,
+            key="u")
+    rec["nvidia_smi"] = nvidia_smi()
+    emit(rec, log)
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_share", "shape", "paths")
@@ -747,6 +1040,10 @@ def main(argv=None):
         phase_conelp_lp(log, results)
     if "sdp" in phases:
         phase_sdp(log, results)
+    if "cpl" in phases:
+        phase_cpl(log, results)
+    if "nonlinear_front" in phases:
+        phase_nonlinear_front(log, results)
 
     kernels = []
     for r in results.values():

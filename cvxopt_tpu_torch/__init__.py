@@ -1,10 +1,14 @@
 """cvxopt_tpu_torch — the PyTorch/CUDA port of `cvxopt_tpu`.
 
-The batched cone-QP interior-point solve (`coneqp.make_coneqp`,
-`coneqp.make_coneqp_cascade`, `coneqp.coneqp`) with its cone algebra,
-Nesterov-Todd scaling and the condensed-KKT factor `kkt.kkt_chol2`,
-whose Schur assembly, blocked Cholesky and panel solves run in
-hand-written CUDA kernels (`ops/fused_chol.py`, `csrc/fused_chol.cu`).
+The cone solvers (`coneqp`, `conelp`; batched cores and cascades), their
+front ends (`lp`, `qp`, `socp`, `sdp`) and the nonlinear solvers (`cp`,
+`cpl`, `gp`; batched `cvxprog.make_cpl`), all in `solvers`, over
+R^l_+ x SOC x PSD, with the reference's advanced forms: operator-form
+G/A/P (`LinearOperator`, `aslinearoperator`), callable kktsolvers,
+dict-valued x in `conelp`, and the structure-exploiting kktsolvers of
+`kkt_structured`.  The condensed-KKT factor `kkt.kkt_chol2` runs its
+Schur assembly, blocked Cholesky and panel solves in hand-written CUDA
+kernels (`ops/fused_chol.py`, `csrc/fused_chol.cu`).
 
 Module and public names follow `cvxopt_tpu`, so each function has a
 twin there.  This package imports torch and numpy only.
@@ -20,5 +24,10 @@ torch.backends.cudnn.allow_tf32 = False
 
 from cvxopt_tpu_torch.cones import ConeDims  # noqa: E402
 from cvxopt_tpu_torch._device import resolve_device  # noqa: E402
+from cvxopt_tpu_torch.linops import LinearOperator, \
+    aslinearoperator  # noqa: E402
+from cvxopt_tpu_torch import kkt_structured  # noqa: E402
+from cvxopt_tpu_torch import solvers  # noqa: E402
 
-__all__ = ["ConeDims", "resolve_device"]
+__all__ = ["ConeDims", "resolve_device", "LinearOperator",
+           "aslinearoperator", "kkt_structured", "solvers"]

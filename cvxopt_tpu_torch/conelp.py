@@ -18,9 +18,14 @@ that were not running keep their old values through ``torch.where``
 (never a multiplication by the mask: a NaN factor in a finished instance
 must not leak into it).  Each pass costs one host sync.
 
-Dense G and A and named kktsolver strategies only: operator-form G/A,
-callable kktsolvers and pytree-valued x/y raise NotImplementedError
-(ROADMAP.md, Queue 1 item 10).
+The front door `conelp` also takes the reference's advanced forms:
+G and A as `LinearOperator`s or callables ``G(x, trans)``, a callable
+``kktsolver(W) -> solve(bx, by, bz)``, and (with operator-form A) a
+dict-valued c, so that x lives in a vector space of named blocks.  All
+arithmetic on x and y goes through the tree helpers of `_tree`.  User
+callables see one unbatched problem, as the JAX package's users write
+them; the solve runs at B = 1 and `_tree._per_instance` puts the batch
+axis back on what they return.
 
 Status codes: 0 optimal, 1 primal infeasible, 2 dual infeasible,
 3 unknown (maxiters), 4 unknown (singular KKT).
@@ -39,7 +44,12 @@ from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
-from cvxopt_tpu_torch.ops.matvec import mv, mvt, vdot
+from cvxopt_tpu_torch.ops.matvec import mv, vdot
+from cvxopt_tpu_torch._tree import (
+    _col, _tmap, _leaves, _where, _tdot, _tnorm, _tzeros, _tneg, _tscale,
+    _taxpy, _tadd, _tsub, _tnorm_parts, _take, _is_operator,
+    _per_instance_factor, _operator_maps,
+)
 
 STATUS_RUNNING = -1
 STATUS_OPTIMAL = 0
@@ -74,31 +84,6 @@ STATUS_STRINGS = {
 # step and centering exponent (coneprog.py:423-424)
 STEP = 0.99
 EXPON = 3
-
-
-def _col(t):
-    """Per-instance scalar (B,) as a column (B, 1)."""
-    return t.unsqueeze(-1)
-
-
-def _where(mask, a, b):
-    """torch.where over matching tensor / list / dict structures with
-    a per-instance (B,) mask."""
-    if isinstance(a, dict):
-        return {k: _where(mask, a[k], b[k]) for k in a}
-    if isinstance(a, list):
-        return [_where(mask, u, v) for u, v in zip(a, b)]
-    m = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
-    return torch.where(m, a, b)
-
-
-def _tnorm_parts(parts):
-    """sqrt(sum of squared 2-norms) over a tuple of (B, k) or (B,)
-    tensors, one value per instance."""
-    t = 0.0
-    for pt in parts:
-        t = t + (pt * pt if pt.dim() == 1 else (pt * pt).sum(-1))
-    return torch.sqrt(torch.clamp(t, min=0.0))
 
 
 def _run_loop(st, body, syncs):
@@ -167,10 +152,12 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
                   refinement, show_progress, primalstart=None,
                   dualstart=None, factor64=None, relres_trigger=True,
                   detect_rescue=False, stall_exit=None, debug=False):
-    """The conelp algorithm on a batch (c: (B, n); h, b: shared or
-    batched) with all linear maps as closures on batched vectors."""
-    Bsz = c.shape[0]
-    dev = c.device
+    """The conelp algorithm on a batch (c: (B, n) or a tree of batched
+    tensors; h, b: shared or batched) with all linear maps as closures
+    on batched vectors."""
+    c0 = _leaves(c)[0]
+    Bsz = c0.shape[0]
+    dev = c0.device
     h = h.expand(Bsz, h.shape[-1])
     b = b.expand(Bsz, b.shape[-1])
     e = cones.cone_identity(dims, dtype=dtype, device=dev)
@@ -178,8 +165,8 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
     kw = dict(dtype=dtype, device=dev)
     ikw = dict(dtype=torch.int32, device=dev)
 
-    resx0 = torch.clamp(torch.linalg.vector_norm(c, dim=-1), min=1.0)
-    resy0 = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1.0)
+    resx0 = torch.clamp(_tnorm(c), min=1.0)
+    resy0 = torch.clamp(_tnorm(b), min=1.0)
     resz0 = torch.clamp(cones.snrm2(h, dims), min=1.0)
 
     # ---- initial points (coneprog.py:662-845) ------------------------
@@ -192,40 +179,41 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         f0 = factor(nt.identity_scaling(dims, dtype=dtype, device=dev,
                                         batch=(Bsz,)))
         # solve [0 A' G'; A 0 0; G 0 -I][x;dy;-s] = [0;b;h]
-        xc, _, ms = f0(torch.zeros_like(c), b, h)
+        xc, _, ms = f0(_tzeros(c), b, h)
         sc = -ms
         nrms = cones.snrm2(sc, dims)
         ts = cones.max_step(sc, dims)
         sc = torch.where(_col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
                          sc + _col(1.0 + ts) * e, sc)
         # solve [...][dx;y;z] = [-c;0;0]
-        _, yc, zc = f0(-c, torch.zeros_like(b), torch.zeros_like(h))
+        _, yc, zc = f0(_tneg(c), _tzeros(b), torch.zeros_like(h))
         nrmz = cones.snrm2(zc, dims)
         tz = cones.max_step(zc, dims)
         zc = torch.where(_col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
                          zc + _col(1.0 + tz) * e, zc)
         cold = (xc, yc, sc, zc)
 
-    def start(d, k, width):
-        return d[k].to(dtype).expand(Bsz, width)
+    def start(d, k):
+        return _tmap(lambda u: u.to(dtype).expand((Bsz,) + u.shape[1:]),
+                     d[k])
 
     if primalstart is None:
         x, s = cold[0], cold[2]
     else:
-        x = start(primalstart, "x", n)
-        s = start(primalstart, "s", dims.cdim)
+        x = start(primalstart, "x")
+        s = start(primalstart, "s")
     if dualstart is None:
         y, z = cold[1], cold[3]
     else:
-        y = start(dualstart, "y", p) if dualstart.get("y") is not None \
-            else torch.zeros_like(b)
-        z = start(dualstart, "z", dims.cdim)
+        y = start(dualstart, "y") if dualstart.get("y") is not None \
+            else _tzeros(b)
+        z = start(dualstart, "z")
 
     if warm and cold is not None:
         # per-instance warm-start validation: a non-finite or
         # non-interior handoff would NaN compute_scaling
         tsz_w = cones.max_step(torch.stack([s, z]), dims)
-        valid = (torch.isfinite(vdot(x, x)) & torch.isfinite(y.sum(-1))
+        valid = (torch.isfinite(_tdot(x, x)) & torch.isfinite(_tdot(y, y))
                  & (tsz_w[0] < 0) & (tsz_w[1] < 0))
         x, y, s, z = (_where(valid, u, cl)
                       for u, cl in zip((x, y, s, z), cold))
@@ -259,8 +247,8 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         f3 = fW(W)
 
         # (x1, y1, z1) = dgi * K^{-1} (-c, b, h)  (coneprog.py:1071)
-        x1, y1, z1 = f3(-c, b, h)
-        x1, y1, z1 = _col(dgi) * x1, _col(dgi) * y1, _col(dgi) * z1
+        x1, y1, z1 = f3(_tneg(c), b, h)
+        x1, y1, z1 = _tscale(dgi, x1), _tscale(dgi, y1), _col(dgi) * z1
         th = nt.scale(h, W, dims, trans="T", inverse="I")
         z1z1 = cones.sdot(z1, z1, dims)
 
@@ -268,13 +256,13 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
             # (coneprog.py:1130-1196)
             us = -cones.sinv(bs, lmbda, dims)
             uz = -(bz + nt.scale(us, W, dims, trans="T"))
-            ux, uy, uz = f3(bx, -by_, uz)
+            ux, uy, uz = f3(bx, _tneg(by_), uz)
             ukappa = -bkappa / lg
             utau = btau + ukappa / dgi
-            utau = dgi * (utau + vdot(c, ux) + vdot(b, uy)
+            utau = dgi * (utau + _tdot(c, ux) + _tdot(b, uy)
                           + cones.sdot(th, uz, dims)) / (1.0 + z1z1)
-            ux = ux + _col(utau) * x1
-            uy = uy + _col(utau) * y1
+            ux = _taxpy(utau, x1, ux)
+            uy = _taxpy(utau, y1, uy)
             uz = uz + _col(utau) * z1
             us = us - uz
             ukappa = ukappa - utau
@@ -284,11 +272,12 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
                    vx, vy, vz, vtau, vs, vkappa):
             # residual of the 6-var system (coneprog.py:599-631)
             wz3 = nt.scale(uz, W, dims, inverse="I")
-            ut = _col(utau / dg)
-            vx = vx - ATf(uy) - GTf(wz3) - ut * c
-            vy = vy + Af(ux) - ut * b
-            vz = vz + Gf(ux) - ut * h + nt.scale(us, W, dims, trans="T")
-            vtau = vtau + dg * ukappa + vdot(c, ux) + vdot(b, uy) \
+            ut = utau / dg
+            vx = _tsub(_tsub(_tsub(vx, ATf(uy)), GTf(wz3)), _tscale(ut, c))
+            vy = _tsub(_tadd(vy, Af(ux)), _tscale(ut, b))
+            vz = vz + Gf(ux) - _col(ut) * h + nt.scale(us, W, dims,
+                                                       trans="T")
+            vtau = vtau + dg * ukappa + _tdot(c, ux) + _tdot(b, uy) \
                 + cones.sdot(h, wz3, dims)
             vs = vs + cones.sprod_diag(us + uz, lmbda, dims)
             vkappa = vkappa + lg * (utau + ukappa)
@@ -304,7 +293,7 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
                 relres = _tnorm_parts(v) / torch.clamp(
                     _tnorm_parts(rhs), min=1e-30)
                 du = f6_no_ir(*v)
-                u = tuple(a + d for a, d in zip(u, du))
+                u = tuple(_tadd(a, d) for a, d in zip(u, du))
             return u, relres
 
         mu = (vdot(lmbda, lmbda) + lgsq) / (1 + dims.cdim_diag)
@@ -337,7 +326,7 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         dk_in = lgsq + wkappa3 - sigma * mu
         om = 1.0 - sigma
         (dx, dy, dz, dtau, ds, dkappa), rr2 = f6(
-            _col(om) * rx, _col(om) * ry, _col(om) * rz, om * rt,
+            _tscale(om, rx), _tscale(om, ry), _col(om) * rz, om * rt,
             ds_in, dk_in)
         t, sig2, dq2 = step_bound(ds, dz, dtau, dkappa, True)
         sigs, sigz = sig2[0], sig2[1]
@@ -347,8 +336,8 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         step = torch.where(t == 0.0, 1.0, torch.clamp(STEP / t, max=1.0))
 
         # ---- update (coneprog.py:1336-1436) --------------------------
-        x = x + _col(step) * dx
-        y = y + _col(step) * dy
+        x = _taxpy(step, dx, x)
+        y = _taxpy(step, dy, y)
 
         nlq = dims.lnl + dims.qdim
         ds2 = torch.cat([e_lq + _col(step) * ds_q[:, :nlq],
@@ -401,20 +390,20 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         iters = st["iters"]
 
         # ---- residuals (coneprog.py:861-915) -------------------------
-        hrx = -(ATf(y) + GTf(z))
-        hresx = torch.linalg.vector_norm(hrx, dim=-1)
-        rx = hrx - _col(tau) * c
-        resx = torch.linalg.vector_norm(rx, dim=-1) / tau
+        hrx = _tneg(_tadd(ATf(y), GTf(z)))
+        hresx = _tnorm(hrx)
+        rx = _tsub(hrx, _tscale(tau, c))
+        resx = _tnorm(rx) / tau
         hry = Af(x)
-        hresy = torch.linalg.vector_norm(hry, dim=-1)
-        ry = hry - _col(tau) * b
-        resy = torch.linalg.vector_norm(ry, dim=-1) / tau
+        hresy = _tnorm(hry)
+        ry = _tsub(hry, _tscale(tau, b))
+        resy = _tnorm(ry) / tau
         hrz = Gf(x) + s
         hresz = cones.snrm2(hrz, dims)
         rz = hrz - _col(tau) * h
         resz = cones.snrm2(rz, dims) / tau
-        cx = vdot(c, x)
-        by = vdot(b, y)
+        cx = _tdot(c, x)
+        by = _tdot(b, y)
         hz = cones.sdot(h, z, dims)
         rt = kappa + cx + by + hz
 
@@ -542,7 +531,8 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
     s_out = final["s"] * _col(xs)
     z_out = final["z"] * _col(ys)
     return dict(
-        x=final["x"] * _col(xs), y=final["y"] * _col(ys), s=s_out, z=z_out,
+        x=_tscale(xs, final["x"]), y=_tscale(ys, final["y"]), s=s_out,
+        z=z_out,
         status=status, iterations=final["iters"],
         gap=final["gap"], relgap=final["relgap"],
         pcost=final["pcost"], dcost=final["dcost"],
@@ -579,9 +569,10 @@ def _tensors(dev, *arrays, dtype=None):
 
 
 def _lp_maps(G, A):
-    """Batched linear-map closures for dense G, A."""
-    return dict(Gf=lambda x: mv(G, x), GTf=lambda z: mvt(G, z),
-                Af=lambda x: mv(A, x), ATf=lambda y: mvt(A, y))
+    """Batched linear-map closures for G, A (dense or operator-form)."""
+    Gf, GTf = _operator_maps(G)
+    Af, ATf = _operator_maps(A)
+    return dict(Gf=Gf, GTf=GTf, Af=Af, ATf=ATf)
 
 
 def _factors(kktsolver, G, dims, A, kktreg, factor_dtype):
@@ -601,7 +592,10 @@ def _factors(kktsolver, G, dims, A, kktreg, factor_dtype):
 
 
 def _unbatch(raw):
-    return {k: (v[0] if torch.is_tensor(v) else v) for k, v in raw.items()}
+    """One instance's results: tensors and trees of tensors lose the
+    batch axis, anything else (counters) stays."""
+    return {k: (_take(v, 0) if torch.is_tensor(_leaves(v)[0]) else v)
+            for k, v in raw.items()}
 
 
 def make_conelp(dims: ConeDims, kktsolver: str = "default",
@@ -837,13 +831,28 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
     return solve
 
 
-def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cuda"):
-    """Dense single-problem inputs as tensors: c (n,), G (cdim, n),
-    h (cdim,), A (p, n), b (p,), with 's' rows symmetrized from their
-    column-major lower triangles."""
+def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cuda",
+                 allow_ops=False):
+    """Single-problem inputs as tensors: c (n,), G (cdim, n), h (cdim,),
+    A (p, n), b (p,), with 's' rows symmetrized from their column-major
+    lower triangles.  With ``allow_ops`` (a user kktsolver is given), G
+    and A may be operators and c a dict of blocks; they pass through
+    (c's leaves as tensors).  Without, either raises ValueError, as in
+    the JAX package."""
     kw = dict(dtype=dtype, device=resolve_device(device))
-    c = torch.as_tensor(c, **kw).reshape(-1)
-    n = c.shape[0]
+    if isinstance(c, dict):
+        if not allow_ops:
+            raise ValueError("pytree-valued c requires operator-form "
+                             "G/A and a custom kktsolver")
+        c = _tmap(lambda u: torch.as_tensor(u, **kw), c)
+        n = sum(u.numel() for u in _leaves(c))
+    else:
+        c = torch.as_tensor(c, **kw).reshape(-1)
+        n = c.shape[0]
+    G_op, A_op = _is_operator(G), _is_operator(A)
+    if (G_op or A_op) and not allow_ops:
+        raise ValueError("use of operator-form G/A requires a "
+                         "user-provided kktsolver")
     h = torch.as_tensor(h, **kw).reshape(-1)
     if dims is None:
         dims = ConeDims(l=h.shape[0])
@@ -851,81 +860,108 @@ def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cuda"):
         dims = ConeDims.from_dict(dims)
     if h.shape[0] != dims.cdim:
         raise TypeError(f"'h' must have length {dims.cdim}")
-    G = torch.as_tensor(G, **kw).reshape(-1, n)
-    if G.shape[0] != dims.cdim:
-        raise TypeError(f"'G' must have {dims.cdim} rows")
-    G = cones.symmetrize_lower(G.transpose(0, 1), dims).transpose(0, 1)
+    if not G_op:
+        G = torch.as_tensor(G, **kw).reshape(-1, n)
+        if G.shape[0] != dims.cdim:
+            raise TypeError(f"'G' must have {dims.cdim} rows")
+        G = cones.symmetrize_lower(G.transpose(0, 1), dims).transpose(0, 1)
     if A is None:
         A = torch.zeros((0, n), **kw)
-    else:
+        A_op = False
+    elif not A_op:
         A = torch.as_tensor(A, **kw).reshape(-1, n)
     if b is None:
-        b = torch.zeros((A.shape[0],), **kw)
+        b = torch.zeros((0 if A_op else A.shape[0],), **kw)
     else:
         b = torch.as_tensor(b, **kw).reshape(-1)
     h = cones.symmetrize_lower(h, dims)
     return c, G, h, dims, A, b
 
 
-def _is_operator(u):
-    return u is not None and not torch.is_tensor(u) and (
-        callable(u) or hasattr(u, "rmv"))
+def _start_values(d, keys, dims, dtype, dev, tree=False):
+    """A warm-start dict as batched (B = 1) tensors; 's' and 'z' are
+    symmetrized and must lie in the interior of the cone.  With `tree`,
+    'x' is a dict of blocks like c."""
+    if d is None:
+        return None
+    out = {}
+    for k in keys:
+        if k not in d:
+            continue
+        if tree and k == "x":
+            out[k] = _tmap(lambda u: torch.as_tensor(
+                u, dtype=dtype, device=dev).unsqueeze(0), d[k])
+            continue
+        v = torch.as_tensor(d[k], dtype=dtype, device=dev).reshape(1, -1)
+        if k in ("s", "z"):
+            v = cones.symmetrize_lower(v, dims)
+            if float(cones.max_step(v, dims)[0]) >= 0:
+                raise ValueError(f"initial {k} is not positive")
+        out[k] = v
+    return out
 
 
 def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
            dualstart=None, kktsolver=None, options=None, device="cuda",
            **kwargs):
     """Solve one cone LP in float64; returns the reference-format result
-    dict (coneprog.py:125-283).  Dense G, A and named kktsolver
-    strategies; `primalstart` ('x', 's') / `dualstart` ('y', 'z') warm
-    starts as in the reference."""
+    dict (coneprog.py:125-283).  `primalstart` ('x', 's') / `dualstart`
+    ('y', 'z') warm starts as in the reference.
+
+    With a callable ``kktsolver(W) -> solve(bx, by, bz)`` (returning
+    ux, uy and W uz for one unbatched problem), G and A may also be
+    `LinearOperator`s or callables ``G(x, trans)`` with trans 'N' or
+    'T', and c a dict of blocks (then A must be operator-form or
+    absent); x comes back in c's form.  Operator forms without a
+    kktsolver raise ValueError."""
     from cvxopt_tpu_torch.solvers import options as global_options
     dev = resolve_device(device)
     opts = dict(global_options)
     if options:
         opts.update(options)
-    if callable(kktsolver) or _is_operator(G) or _is_operator(A) \
-            or isinstance(c, dict):
-        raise NotImplementedError(
-            "operator-form G/A, callable kktsolvers and pytree-valued "
-            "x/y are not ported yet (ROADMAP.md Queue 1 item 10)")
     dtype = torch.float64
+    custom_kkt = callable(kktsolver)
     c, G, h, dims, A, b = _prep_inputs(c, G, h, dims, A, b, dtype=dtype,
-                                       device=dev)
+                                       device=dev, allow_ops=custom_kkt)
     refinement = opts.get("refinement", None)
     factor_dtype = kktmod.resolve_factor_dtype(
         opts.get("factor_dtype", "auto"))
     if factor_dtype is not None and refinement is None:
         refinement = 1   # mixed precision needs one f64 IR round
+    tree = isinstance(c, dict)
+    ps = _start_values(primalstart, ("x", "s"), dims, dtype, dev, tree)
+    ds = _start_values(dualstart, ("y", "z"), dims, dtype, dev)
+    tols = dict(maxiters=int(opts.get("maxiters", 100)),
+                abstol=float(opts.get("abstol", 1e-7)),
+                reltol=float(opts.get("reltol", 1e-6)),
+                feastol=float(opts.get("feastol", 1e-7)),
+                show_progress=bool(opts.get("show_progress", False)))
 
-    def start(d, keys):
-        if d is None:
-            return None
-        out = {}
-        for k in keys:
-            if k in d:
-                v = torch.as_tensor(d[k], dtype=dtype,
-                                    device=dev).reshape(1, -1)
-                if k in ("s", "z"):
-                    v = cones.symmetrize_lower(v, dims)
-                    if float(cones.max_step(v, dims)[0]) >= 0:
-                        raise ValueError(f"initial {k} is not positive")
-                out[k] = v
-        return out
+    if not custom_kkt:
+        fn = make_conelp(
+            dims, kktsolver=kktsolver or "default", refinement=refinement,
+            kktreg=opts.get("kktreg", None), factor_dtype=factor_dtype,
+            debug=bool(opts.get("debug", False)), device=dev, **tols)
+        raw = fn(c, G, h, A, b, primalstart=ps, dualstart=ds)
+        return finalize_result(raw, dims)
 
-    fn = make_conelp(
-        dims, kktsolver=kktsolver or "default",
-        maxiters=int(opts.get("maxiters", 100)),
-        abstol=float(opts.get("abstol", 1e-7)),
-        reltol=float(opts.get("reltol", 1e-6)),
-        feastol=float(opts.get("feastol", 1e-7)),
-        refinement=refinement, kktreg=opts.get("kktreg", None),
-        factor_dtype=factor_dtype,
-        show_progress=bool(opts.get("show_progress", False)),
-        debug=bool(opts.get("debug", False)), device=dev)
-    raw = fn(c, G, h, A, b, primalstart=start(primalstart, ("x", "s")),
-             dualstart=start(dualstart, ("y", "z")))
-    return finalize_result(raw, dims)
+    # ---- advanced path: a user kktsolver, operators, dict-valued x ----
+    A_op = _is_operator(A)
+    if tree and not A_op and A.shape[0]:
+        # a matrix A is only meaningful for a dict x when it is empty
+        # (coneprog.py:477-479)
+        raise ValueError("pytree-valued c requires operator-form A")
+    cb = _tmap(lambda u: u.unsqueeze(0), c)
+    maps = _lp_maps(G, A)
+    if tree and not A_op:
+        maps["Af"] = lambda x: b.new_zeros((1, 0))
+        maps["ATf"] = lambda y: _tzeros(cb)
+    _, refinement = _resolve_opts(dims, "default", refinement)
+    raw = _conelp_solve(
+        dims, factor=_per_instance_factor(kktsolver), **maps, c=cb,
+        h=h, b=b.unsqueeze(0), n=None, p=b.shape[0], dtype=dtype,
+        refinement=refinement, primalstart=ps, dualstart=ds, **tols)
+    return finalize_result(_unbatch(raw), dims)
 
 
 def finalize_result(raw, dims: ConeDims):

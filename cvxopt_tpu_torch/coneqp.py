@@ -29,13 +29,17 @@ from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
 from cvxopt_tpu_torch._device import resolve_device
-from cvxopt_tpu_torch.ops.matvec import mv, mvt, vdot
+from cvxopt_tpu_torch.ops.matvec import mv, vdot
 from cvxopt_tpu_torch.conelp import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STRINGS,
     STEP, EXPON, RESCUE_STALL_ITERS, RESCUE_RELRES, _prep_inputs,
-    _tnorm_parts, _col, _where, _run_loop, _restart_state, _tensors,
-    _unbatch, rescue_compacted,
+    _run_loop, _restart_state, _tensors, _unbatch, rescue_compacted,
+    _lp_maps, _start_values,
+)
+from cvxopt_tpu_torch._tree import (
+    _col, _where, _tnorm_parts, _is_operator, _per_instance_factor,
+    _operator_maps,
 )
 
 
@@ -348,9 +352,7 @@ def _resolve_qp_opts(dims, kktsolver, refinement):
 
 def _maps(P, G, A):
     """Batched linear-map closures for dense P (B, n, n), G, A."""
-    return dict(Pf=lambda x: mv(P, x),
-                Gf=lambda x: mv(G, x), GTf=lambda z: mvt(G, z),
-                Af=lambda x: mv(A, x), ATf=lambda y: mvt(A, y))
+    return dict(Pf=lambda x: mv(P, x), **_lp_maps(G, A))
 
 
 def make_coneqp(dims: ConeDims, kktsolver: str = "default",
@@ -548,63 +550,67 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None,
            initvals=None, kktsolver=None, options=None, device="cuda",
            **kwargs):
     """Solve one cone QP in float64; returns the reference-format
-    result dict (no certificate entries).  Dense P, G, A and named
-    kktsolver strategies; operator-form P/G/A and callable kktsolvers
-    are a later slice (ROADMAP.md, Queue 1 item 10)."""
+    result dict (no certificate entries).
+
+    With a callable ``kktsolver(W) -> solve(bx, by, bz)`` (returning
+    ux, uy and W uz for one unbatched problem), P, G and A may also be
+    `LinearOperator`s or callables ``G(x, trans)`` ('N' or 'T'; P is
+    applied with 'N').  Operator forms without a kktsolver raise
+    ValueError."""
     from cvxopt_tpu_torch.solvers import options as global_options
     dev = resolve_device(device)
     opts = dict(global_options)
     if options:
         opts.update(options)
-    if callable(kktsolver) or any(callable(u) and not torch.is_tensor(u)
-                                  for u in (P, G, A)):
-        raise NotImplementedError(
-            "operator-form P/G/A and callable kktsolvers are not ported "
-            "yet (ROADMAP.md Queue 1 item 10)")
     dtype = torch.float64
+    custom_kkt = callable(kktsolver)
+    P_op = _is_operator(P)
+    if P_op and not custom_kkt:
+        raise ValueError("use of operator-form P requires a "
+                         "user-provided kktsolver")
     q = torch.as_tensor(q, dtype=dtype, device=dev).reshape(-1)
     n = q.shape[0]
-    P = torch.as_tensor(P, dtype=dtype, device=dev).reshape(n, n)
-    P = 0.5 * (P + P.T)
+    if not P_op:
+        P = torch.as_tensor(P, dtype=dtype, device=dev).reshape(n, n)
+        P = 0.5 * (P + P.T)
     if G is None and h is None:
         G = torch.zeros((0, n), dtype=dtype, device=dev)
         h = torch.zeros((0,), dtype=dtype, device=dev)
         if dims is None:
             dims = ConeDims(l=0)
     _, G, h, dims, A, b = _prep_inputs(q, G, h, dims, A, b, dtype=dtype,
-                                       device=dev)
+                                       device=dev, allow_ops=custom_kkt)
     refinement = opts.get("refinement", None)
     factor_dtype = kktmod.resolve_factor_dtype(
         opts.get("factor_dtype", "auto"))
     if factor_dtype is not None and refinement is None:
         refinement = 1   # mixed precision needs one f64 IR round
+    iv = _start_values(initvals, ("x", "y", "s", "z"), dims, dtype, dev)
+    tols = dict(maxiters=int(opts.get("maxiters", 100)),
+                abstol=float(opts.get("abstol", 1e-7)),
+                reltol=float(opts.get("reltol", 1e-6)),
+                feastol=float(opts.get("feastol", 1e-7)),
+                correction=bool(opts.get("use_correction", True)),
+                show_progress=bool(opts.get("show_progress", False)))
 
-    iv = None
-    if initvals is not None:
-        iv = {}
-        for k in ("x", "y", "s", "z"):
-            if k in initvals:
-                v = torch.as_tensor(initvals[k], dtype=dtype,
-                                    device=dev).reshape(1, -1)
-                if k in ("s", "z"):
-                    v = cones.symmetrize_lower(v, dims)
-                    if float(cones.max_step(v, dims)[0]) >= 0:
-                        raise ValueError(f"initial {k} is not positive")
-                iv[k] = v
+    if not custom_kkt:
+        fn = make_coneqp(
+            dims, kktsolver=kktsolver or "default", refinement=refinement,
+            kktreg=opts.get("kktreg", None), factor_dtype=factor_dtype,
+            debug=bool(opts.get("debug", False)), device=dev, **tols)
+        raw = fn(P, q, G, h, A, b, initvals=iv)
+        return finalize_qp_result(raw)
 
-    fn = make_coneqp(
-        dims, kktsolver=kktsolver or "default",
-        maxiters=int(opts.get("maxiters", 100)),
-        abstol=float(opts.get("abstol", 1e-7)),
-        reltol=float(opts.get("reltol", 1e-6)),
-        feastol=float(opts.get("feastol", 1e-7)),
-        refinement=refinement, kktreg=opts.get("kktreg", None),
-        correction=bool(opts.get("use_correction", True)),
-        factor_dtype=factor_dtype,
-        show_progress=bool(opts.get("show_progress", False)),
-        debug=bool(opts.get("debug", False)), device=dev)
-    raw = fn(P, q, G, h, A, b, initvals=iv)
-    return finalize_qp_result(raw)
+    # ---- advanced path: a user kktsolver and operator-form P/G/A ----
+    maps = _maps(P, G, A)
+    if P_op:
+        maps["Pf"] = _operator_maps(P)[0]
+    _, refinement = _resolve_qp_opts(dims, "default", refinement)
+    raw = _coneqp_solve(
+        dims, factor_W=_per_instance_factor(kktsolver), **maps,
+        q=q.unsqueeze(0), h=h, b=b.unsqueeze(0), n=n, p=b.shape[0],
+        dtype=dtype, refinement=refinement, initvals=iv, **tols)
+    return finalize_qp_result(_unbatch(raw))
 
 
 def finalize_qp_result(raw):

@@ -24,7 +24,10 @@ A wrapper given CPU tensors (with ``device="cpu"``) computes the plain
 version; given CUDA tensors it launches its kernel or raises.  Each
 wrapper counts its calls that launch on the card in
 ``<wrapper>.launches``; one call of a factor wrapper launches two device
-kernels (schur_assemble, then schur_factor) and counts one.
+kernels (schur_assemble, then schur_factor) and counts one.  A solve
+wrapper launches solve_few or solve_many by the number of right-hand
+sides and also counts its calls per device kernel in
+``<wrapper>.kernels`` (`solve_kernel_counts`).
 `launch_config` gives each call's grids and shared memory.
 
 A pivot <= 0 or not finite poisons the whole instance with NaN, in the
@@ -275,7 +278,7 @@ def _launch_solve(L3, D4, Bm, b_bs, nrhs):
     X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
     _run("chol_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(), b_bs,
          X.data_ptr(), Bsz, n, nrhs, cfg["smem"])
-    return X
+    return X, cfg["kernel"]
 
 
 def _check_n(n):
@@ -336,8 +339,9 @@ def fused_cholesky_solve(L, Dinv, B_rows, *, device="cuda"):
     Bm = B_rows.unsqueeze(0) if B_rows.dim() == 2 else B_rows
     if Bm.shape[0] != L3.shape[0]:
         Bm = Bm.expand(L3.shape[0], -1, -1)
-    X = _launch_solve(L3, D4, Bm, Bm.stride(0), Bm.shape[1])
+    X, kname = _launch_solve(L3, D4, Bm, Bm.stride(0), Bm.shape[1])
     fused_cholesky_solve.launches += 1
+    fused_cholesky_solve.kernels[kname] += 1
     return X[0] if single and B_rows.dim() == 2 else X
 
 
@@ -375,22 +379,32 @@ def fused_cholesky_solve_batched(L, Dinv, B_rows, tb: int = 8, *,
         raise ValueError("B must be divisible by tb and n by BP")
     if dev.type == "cpu":
         return fused_cholesky_solve_batched_ref(L, Dinv, B_rows)
-    X = _launch_solve(L, Dinv, B_rows, B_rows.stride(0), B_rows.shape[1])
+    X, kname = _launch_solve(L, Dinv, B_rows, B_rows.stride(0),
+                             B_rows.shape[1])
     fused_cholesky_solve_batched.launches += 1
+    fused_cholesky_solve_batched.kernels[kname] += 1
     return X
 
 
 WRAPPERS = (fused_schur_cholesky, fused_cholesky_solve,
             fused_schur_cholesky_batched, fused_cholesky_solve_batched)
+SOLVE_WRAPPERS = (fused_cholesky_solve, fused_cholesky_solve_batched)
 
 
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
+    for w in SOLVE_WRAPPERS:
+        w.kernels = {"solve_few": 0, "solve_many": 0}
 
 
 def launch_counts():
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def solve_kernel_counts():
+    """Calls of each solve wrapper by the device kernel they launched."""
+    return {w.__name__: dict(w.kernels) for w in SOLVE_WRAPPERS}
 
 
 reset_launch_counts()

@@ -1,7 +1,9 @@
 """cvxopt_tpu_torch.solvers — solver front door of the port.
 
-Twin of `cvxopt_tpu/solvers.py`: the cone solvers, their front ends and
-the shared `options` dict, read at call time:
+Twin of `cvxopt_tpu/solvers.py`: the cone solvers (`conelp`, `coneqp`,
+with operator-form G/A/P and callable kktsolvers), their front ends
+(`lp`, `qp`, `socp`, `sdp`), the nonlinear solvers (`cp`, `cpl`, `gp`)
+and the shared `options` dict, read at call time:
 
     options['show_progress']  bool (default: False)
     options['maxiters']       positive integer (default: 100)
@@ -13,9 +15,6 @@ the shared `options` dict, read at call time:
     options['kktreg']         static KKT regularization (default: None)
     options['factor_dtype']   'auto' (default; the working dtype),
                               'float32', 'rescue' or 'none'
-
-The nonlinear solvers (`cp`, `cpl`, `gp`) are not ported yet
-(ROADMAP.md, Queue 1 item 11).
 """
 
 from cvxopt_tpu_torch.conelp import conelp, make_conelp, \
@@ -23,9 +22,11 @@ from cvxopt_tpu_torch.conelp import conelp, make_conelp, \
 from cvxopt_tpu_torch.coneqp import coneqp, make_coneqp, \
     make_coneqp_cascade
 from cvxopt_tpu_torch.frontends import lp, qp, socp, sdp
+from cvxopt_tpu_torch.cvxprog import cp, cpl, gp
 
 options = {}
 
-__all__ = ["conelp", "coneqp", "lp", "qp", "socp", "sdp", "options",
+__all__ = ["conelp", "coneqp", "cp", "cpl", "gp",
+           "lp", "qp", "socp", "sdp", "options",
            "make_conelp", "make_coneqp", "make_coneqp_cascade",
            "make_conelp_cascade", "make_conelp_ws", "make_conelp_refresh"]

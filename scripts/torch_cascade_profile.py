@@ -14,6 +14,10 @@ Paths (the configurations and data of chip_smoke.py's phases):
              LPs, n=256
   sdp        make_conelp_cascade(s=(50,), 1e-7/1e-6/1e-7) on 128 max-cut
              SDP relaxations, m=50
+  cpl        cvxprog.make_cpl(l=512, mnl=1, 'chol2') on 1024 acent2
+             problems, n=256 plus the epigraph variable, f64; also the
+             main loop's passes, the host syncs and the device launches
+             per pass
   library    no solve: CUDA-event times of the library calls that the
              socp and sdp paths make once per loop pass, at their shapes
              (batched torch.linalg.qr, eigh, eigvalsh, solve_triangular)
@@ -68,6 +72,7 @@ def _setup(path, kktsolver):
     from cvxopt_tpu_torch.cones import ConeDims
     from cvxopt_tpu_torch.coneqp import make_coneqp_cascade
     from cvxopt_tpu_torch.conelp import make_conelp_cascade
+    from cvxopt_tpu_torch.cvxprog import make_cpl
     tol = dict(abstol=1e-7, reltol=1e-7, feastol=1e-7)
     if path == "cascade":
         solve = make_coneqp_cascade(
@@ -80,6 +85,10 @@ def _setup(path, kktsolver):
             ConeDims(q=(4,) * 100), kktsolver="chol2_inv", maxiters=50,
             shared_GhAb=False, instrument=True, **tol)
         data, desc = cs.soc_qps(1024, seed=0), {"nb": 1024, "n": 64}
+    elif path == "cpl":
+        data, F = cs.acent2_batch(1024, 256, seed=0)
+        solve = make_cpl(ConeDims(l=512, mnl=1), F, kktsolver="chol2")
+        desc = {"nb": 1024, "n": 257, "kktsolver": "chol2"}
     elif path == "conelp_lp":
         solve = make_conelp_cascade(
             ConeDims(l=512), kktsolver="chol2", maxiters=50,
@@ -142,7 +151,7 @@ def _dev_time(evt):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="cascade",
-                    choices=("cascade", "socp", "conelp_lp", "sdp",
+                    choices=("cascade", "socp", "conelp_lp", "sdp", "cpl",
                              "library"))
     ap.add_argument("--kktsolver", default="chol2_inv",
                     help="the cascade path's strategy")
@@ -178,7 +187,8 @@ def main(argv=None):
         runs.append({"wall_s": wall, "iterations": iters,
                      "ipm_iters_per_s": iters / wall,
                      "solved": int((out["status"] == 0).sum()),
-                     "profile": out["profile"]})
+                     **{k: out[k] for k in ("profile", "passes",
+                                            "host_syncs") if k in out}})
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -213,6 +223,12 @@ def main(argv=None):
         "device_launches": launches,
         "top": rows[:12],
     }
+    if "passes" in runs[-1]:
+        passes = runs[-1]["passes"]
+        summary.update(
+            host_syncs_per_pass=runs[-1]["host_syncs"] / passes,
+            device_launches_per_pass=launches / passes,
+            device_ms_per_pass=dev_ms / passes)
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -385,9 +385,13 @@ def test_conelp_primalstart_dualstart_match_jax():
 
 
 def test_later_forms_raise_not_implemented():
+    """Operator-form G/A and a dict-valued c need a user kktsolver: both
+    packages raise ValueError without one."""
     c, G, h, dims = DOC_LP
-    for kw in (dict(kktsolver=lambda W: None), dict(A=lambda x, t: x)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tc.conelp(c, G, h, dims, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.conelp(c, lambda x, t: x, h, dims, device="cpu")
+    cases = [(c, G, dict(A=lambda x, t: x)), (c, lambda x, t: x, {}),
+             ({"u": c}, G, {})]
+    for cc, GG, kw in cases:
+        with pytest.raises(ValueError):
+            jc.conelp(cc, GG, h, dims, **kw)
+        with pytest.raises(ValueError):
+            tc.conelp(cc, GG, h, dims, device="cpu", **kw)

@@ -297,3 +297,55 @@ def test_adaptive_factor_on_card_matches_cpu(cuda_device):
     for u, v in zip(out, ref):
         scale = max(1.0, float(v.abs().max()))
         assert float((u.cpu() - v).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nrhs", [1, 64])
+def test_cpl_kernel_shapes_match_plain_on_card(cuda_device, nrhs):
+    """The batched cpl path's f64 shapes (chip_smoke.py rows 9-11): the
+    per-instance factor at n = 320 (257 padded), m = 513, and its solves
+    at nrhs 1 (solve_few) and 64 (solve_many), B = 16."""
+    rng = np.random.default_rng(15)
+    B, n, m = 16, 320, 513
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    P, _, Gtb, _ = _problem(rng, B, n, m, kw)
+    ones = torch.ones((B, m), **kw)
+    fc.reset_launch_counts()
+    L, D = fc.fused_schur_cholesky(P, Gtb, ones)
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gtb, ones)
+    assert _rel(L, Lr) <= 1e-12 and _rel(D, Dr) <= 1e-12
+    rhs = torch.as_tensor(rng.standard_normal((B, nrhs, n)), **kw)
+    x = fc.fused_cholesky_solve(L, D, rhs)
+    assert _rel(x, fc.fused_cholesky_solve_ref(Lr, Dr, rhs)) <= 1e-12
+    kernel = "solve_few" if nrhs <= fc.FEW_RHS else "solve_many"
+    assert fc.solve_kernel_counts()["fused_cholesky_solve"][kernel] == 1
+
+
+@pytest.mark.gpu
+def test_batched_cpl_on_card_matches_cpu(cuda_device):
+    """make_cpl with 'chol2' on 16 acent2 problems (n = 64 plus the
+    epigraph variable) on the card against the CPU run: statuses and
+    iterations equal, x within 1e-6, the unbatched kernels launched."""
+    from cvxopt_tpu_torch.cvxprog import make_cpl
+    n, p, B = 64, 16, 16
+    rng = np.random.default_rng(16)
+    Au = rng.standard_normal((p, n))
+    eye = np.eye(n)
+    data = (np.eye(n + 1)[n], np.eye(n + 1)[n],
+            np.concatenate([np.concatenate([eye, -eye]),
+                            np.zeros((2 * n, 1))], axis=1),
+            np.ones(2 * n), np.concatenate([Au, np.zeros((p, 1))], axis=1),
+            rng.uniform(-0.5, 0.5, (B, n)) @ Au.T)
+
+    def F(x):
+        return (-torch.log(1.0 - x[:n] ** 2).sum() - x[n]).reshape(1)
+
+    dims = ConeDims(l=2 * n, mnl=1)
+    ref = make_cpl(dims, F, kktsolver="chol2", device="cpu")(*data)
+    fc.reset_launch_counts()
+    out = make_cpl(dims, F, kktsolver="chol2", device=cuda_device)(*data)
+    assert fc.launch_counts()["fused_schur_cholesky"] > 0
+    assert fc.solve_kernel_counts()["fused_cholesky_solve"]["solve_many"] > 0
+    assert (out["status"] == 0).all() and (ref["status"] == 0).all()
+    assert torch.equal(out["iterations"].cpu(), ref["iterations"])
+    assert float((out["x"].cpu() - ref["x"]).abs().max()) <= 1e-6

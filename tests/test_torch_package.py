@@ -20,7 +20,8 @@ from cvxopt_tpu_torch.scaling import identity_scaling
 from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade, \
     coneqp
 from cvxopt_tpu_torch import conelp as tlp
-from cvxopt_tpu_torch import solvers
+from cvxopt_tpu_torch import solvers, kkt_structured
+from cvxopt_tpu_torch.cvxprog import make_cpl
 from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops import _build
 
@@ -62,6 +63,7 @@ def test_no_jax_imports():
     assert len(srcs) > 10
     names = {os.path.relpath(p, PKG) for p in srcs}
     for mod in ("conelp.py", "frontends.py", "solvers.py", "kkt.py",
+                "cvxprog.py", "kkt_structured.py", "_tree.py",
                 os.path.join("ops", "blockinv.py"),
                 os.path.join("ops", "jacobi.py")):
         assert mod in names
@@ -108,6 +110,16 @@ def test_entry_points_raise_without_card(no_card):
                             hs=[np.zeros((1, 1))]),
         lambda: cone_identity(dims),
         lambda: identity_scaling(dims),
+        lambda: make_cpl(ConeDims(l=2, mnl=1), torch.exp),
+        lambda: solvers.cpl(np.ones(1), torch.exp, np.zeros(1)),
+        lambda: solvers.cp(torch.exp, np.zeros(1)),
+        lambda: solvers.gp([1], np.ones((1, 1)), np.zeros(1)),
+        lambda: kkt_structured.l1(np.eye(2), np.ones(2)),
+        lambda: kkt_structured.l1regls(np.eye(2), np.ones(2)),
+        lambda: kkt_structured.woodbury_solver(np.ones(2), np.ones((2, 1))),
+        lambda: kkt_structured.l1_operator(np.eye(2)),
+        lambda: kkt_structured.kkt_l1(np.eye(2)),
+        lambda: kkt_structured.kkt_l1regls(np.eye(2)),
         lambda: fc.fused_schur_cholesky(torch.eye(64), torch.ones(64, 2),
                                         torch.ones(2)),
         lambda: fc.fused_cholesky_solve(torch.eye(64),
@@ -141,7 +153,12 @@ def test_cpu_run_does_not_count_launches():
     fc.reset_launch_counts()
     fc.fused_schur_cholesky(torch.eye(64), torch.ones(64, 2),
                             torch.ones(2), device="cpu")
+    fc.fused_cholesky_solve(torch.eye(64), torch.eye(64).reshape(1, 64, 64),
+                            torch.ones(1, 64), device="cpu")
     assert fc.launch_counts() == {w.__name__: 0 for w in fc.WRAPPERS}
+    assert fc.solve_kernel_counts() == {
+        w.__name__: {"solve_few": 0, "solve_many": 0}
+        for w in fc.SOLVE_WRAPPERS}
 
 
 def test_build_is_lazy_and_hashed():

@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
   env      nvidia-smi name and power limit, torch and CUDA versions
   build    nvcc builds csrc/fused_chol.cu (sm_90a); seconds, ptxas usage
   kernels  the four fused-Cholesky wrappers against their plain PyTorch
-           versions on the card, at the main-path shapes in f32 and at
-           B=64 in f64, plus a non-PD instance that must come back NaN;
+           versions on the card, at every solver phase's shapes (f32;
+           f64 for cpl and lp_milp) and at B=64 in f64, plus a non-PD
+           instance that must come back NaN;
            kernel, plain-version and library times, share of the bound
            (bound_ms / ms), and schur_chol's two launches (assembly,
            factor) timed apart
@@ -46,11 +47,26 @@ Phases, each printing one JSON line:
            kkt_structured.l1regls (m=200, n=2000: operator P/G, Woodbury
            kktsolver in coneqp) against its optimality conditions and
            the CPU run
+  lp_milp  the LP modeling and integer path: boeing2.mps (BASELINE.json
+           config 1) through modeling.op().fromfile().solve() (conelp
+           'chol2', the batched kernel pair at B=1 in f64) and through
+           solvers.lp(solver='glpk') (the simplex: both optimal, objectives
+           within 1e-3 of the NETLIB value and 1e-6 of each other, pivots,
+           host syncs, and the library QR's share of device time in a
+           profiled window of the pivot loop); bench.py's 256 batched vertex LPs (n=16, m=40,
+           p=1) through make_simplex(batched=True) against scipy's HiGHS
+           (objectives within 1e-9) and the CPU run; the 60-binary
+           multi-knapsack of tests/test_ilp.py through glpk.ilp
+           (node_batch=16) with and without cover cuts against
+           scipy.optimize.milp (objective within 1e-6; cuts open at most
+           0.85 x the nodes), the batched kernel pair launched in f64
 
 Each solver phase sets the kernels' launch counts to 0 just before its
-timed solve and reads them just after.  Then a `{"kernels": [...]}` line
-(one row per wrapper and shape, with the phases that launched it), the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.  Any failed check raises, and the
+timed solve and reads them just after.  Then a line with each phase's
+wall seconds (checks and CPU references included), a `{"kernels":
+[...]}` line (one row per wrapper and shape, with the phases that
+launched it), the nvidia-smi line, and last `{"ok": true, "device":
+{...}}`.  Any failed check raises, and the
 script exits non-zero; it also exits non-zero, printing no result,
 when no CUDA device is present.
 """
@@ -64,7 +80,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
-          "conelp_lp", "sdp", "cpl", "nonlinear_front")
+          "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
@@ -238,6 +254,44 @@ def mcsdp_batch(nb, m=50, seed=0):
     W = (W + W.transpose(0, 2, 1)) / np.sqrt(m)
     return (np.ones((nb, m)), np.broadcast_to(G, (nb,) + G.shape).copy(),
             W.reshape(nb, -1), np.zeros((nb, 0, m)), np.zeros((nb, 0)))
+
+
+def boeing2_lp():
+    """BASELINE.json's first configuration, the NETLIB LP boeing2
+    (tests/data/boeing2.mps, 166 rows, 143 columns) as (c, G, h, A, b)."""
+    from cvxopt_tpu_torch.mpsio import mps_load
+    return mps_load(os.path.join(ROOT, "tests", "data",
+                                 "boeing2.mps")).to_lp()
+
+
+def vertex_lps(nb=256, n=16, mextra=8, seed=5):
+    """bench.py bench_batched_lp's LPs (:1051-1104): min c'x, 0 <= x <= 1,
+    `mextra` random rows Pn x <= Pn 0.5 + U(0.05, 0.5), sum x = n / 2;
+    per-instance (c, G, h, A, b) and Pn."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    eye = np.eye(n)
+    Pn = rng.standard_normal((nb, mextra, n)) / np.sqrt(n)
+    G = np.concatenate([np.broadcast_to(np.vstack([eye, -eye]),
+                                        (nb, 2 * n, n)), Pn], axis=1)
+    h = np.concatenate(
+        [np.ones((nb, n)), np.zeros((nb, n)),
+         Pn @ np.full(n, 0.5) + rng.uniform(0.05, 0.5, (nb, mextra))],
+        axis=1)
+    c = rng.standard_normal((nb, n))
+    A = np.ones((nb, 1, n))
+    b = np.full((nb, 1), n / 2.0)
+    return (c, G, h, A, b), Pn
+
+
+def knapsack60(seed=11):
+    """tests/test_ilp.py:99-120: 60 binaries, 5 knapsack rows with
+    capacity 0.3 of each row's total weight; max value = min c'x."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    c = -rng.uniform(1, 10, 60)
+    W = rng.uniform(1, 10, (5, 60))
+    return c, W, 0.3 * W.sum(axis=1)
 
 
 # ---- phases --------------------------------------------------------------
@@ -542,6 +596,57 @@ def phase_kernels(log, results):
                 rhs.transpose(1, 2), L9)),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
     del L9, D9, rhs, x, xr
+
+    # -- the lp_milp path's shapes, f64, shared Gt, P = 0 (an LP): boeing2
+    # through conelp (B = 1, n = 143 padded to 192, m = 378; solves at
+    # nrhs 1, and 4 for S^{-1} A') and the ilp node batches (B = 16,
+    # n = 60 padded to 64, m = 5 rows + 32 cut rows + 120 box rows)
+    # (tb = 1, as kkt_chol2 calls the batched pair)
+    b1 = lambda P, Gt, d2, equilibrate=False: \
+        fc.fused_schur_cholesky_batched(P, Gt, d2, tb=1,
+                                        equilibrate=equilibrate)
+    for tag, (Bl, nl, ml), extra in (("boeing2", (1, 192, 378), 4),
+                                     ("milp", (16, 64, 157), None)):
+        P, Gt, d2 = kernel_data(Bl, nl, ml, f64, False, seed=8)
+        P = torch.zeros_like(P)
+        (Ll, Dl), refl, el = _check_factor(
+            b1, P, Gt, d2, "float64",
+            f"fused_schur_cholesky_batched ({tag})", False)
+        bound, by = _factor_bound(Bl, nl, ml, True, 8)
+        results["fused_schur_cholesky_batched/" + tag] = dict(
+            name="fused_schur_cholesky_batched", replaces=rep + "338",
+            shape=[Bl, nl, ml], dtype="float64", rel_fro_err=el,
+            max_abs_err=max_abs(Ll, refl[0]),
+            ms=time_ms(lambda: b1(P, Gt, d2)),
+            plain_ms=time_ms(
+                lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
+            library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+            bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
+        r = results["fused_schur_cholesky_batched/" + tag]
+        r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+        sl = lambda rhs: fc.fused_cholesky_solve_batched(Ll, Dl, rhs, tb=1)
+        errs = {}
+        for k in (1, extra) if extra else (1,):
+            rhs = torch.randn((Bl, k, nl), device="cuda", dtype=f64,
+                              generator=g)
+            x, xr = sl(rhs), fc.fused_cholesky_solve_ref(Ll, Dl, rhs)
+            errs[f"nrhs{k}"] = rel_fro(x, xr)
+            if k == 1:
+                r1, x1, x1r = rhs, x, xr
+        check(all(v <= TOL["float64"] for v in errs.values()),
+              f"fused_cholesky_solve_batched ({tag}) disagrees: {errs}")
+        bound, by = _solve_bound(Bl, nl, 1, False, 8)
+        results["fused_cholesky_solve_batched/" + tag] = dict(
+            name="fused_cholesky_solve_batched", replaces=rep + "404",
+            shape=[Bl, nl, 1], dtype="float64", rel_fro_err=errs,
+            max_abs_err=max_abs(x1, x1r),
+            ms=time_ms(lambda: sl(r1)),
+            plain_ms=time_ms(
+                lambda: fc.fused_cholesky_solve_ref(Ll, Dl, r1)),
+            library_ms=time_ms(lambda: torch.cholesky_solve(
+                r1.transpose(1, 2), Ll)),
+            bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
+        del P, Gt, d2, Ll, Dl, refl
 
     # -- float64 at B = 64, with one non-PD instance (must be NaN)
     B64 = 64
@@ -1001,6 +1106,257 @@ def phase_nonlinear_front(log, results):
     emit(rec, log)
 
 
+# device-kernel name fragments -> group of a profile's breakdown
+GROUPS = (
+    ("hand_written", ("schur_assemble", "schur_factor", "solve_few",
+                      "solve_many")),
+    ("library_qr", ("geqr", "larf", "orgqr", "ormqr", "householder",
+                    "geqr2", "larft")),
+    ("library_eigh", ("syev", "sytr", "stedc", "steqr", "jacobi", "heev",
+                      "sytd", "latrd", "laed", "ormtr", "stedx")),
+    ("library_chol_lu_trsm", ("potr", "getr", "trsm", "trsv", "trmm",
+                              "triangular", "lu_", "cholesky")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sgemm", "dgemm", "bmm")),
+)
+
+
+def kernel_group(name):
+    low = name.lower()
+    for grp, frags in GROUPS:
+        if any(f in low for f in frags):
+            return grp
+    return "other"
+
+
+def device_rows(prof):
+    """(name, launches, device ms) of every device-side event of a
+    torch.profiler run: a CPU op's device time repeats the kernels it
+    launched, so only device events count."""
+    rows = []
+    for e in prof.key_averages():
+        dt = next((getattr(e, k) for k in ("self_device_time_total",
+                                           "self_cuda_time_total")
+                   if hasattr(e, k)), 0.0)
+        if "CUDA" in str(getattr(e, "device_type", "CUDA")) and dt > 0:
+            rows.append({"name": e.key[:120], "count": e.count,
+                         "device_ms": dt / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def _simplex_phases(data, maxiters):
+    """The two simplex phases of a batch of LPs (c, G, h, A, b with a
+    leading batch axis) through simplex._setup/_phase on the card:
+    pivot-loop trips per phase (the most any instance took), pivots in
+    all, host syncs and wall seconds."""
+    import torch
+    from cvxopt_tpu_torch import simplex as sx
+    args = [torch.as_tensor(u, device="cuda") for u in data]
+    syncs = [0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S = sx._setup(*args)
+    basis, code1, it1, _ = sx._phase(
+        S["W"], S["r"], S["c1"], ~S["is_art"], S["basis0"], maxiters,
+        syncs=syncs)
+    _, code2, it2, _ = sx._phase(
+        S["W"], S["r"], S["c2"], ~S["is_art"], basis, maxiters - it1,
+        cap_art=S["is_art"], syncs=syncs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool((code1 == 0).all() and (code2 == 0).all()),
+          "simplex phases: a phase did not end optimal")
+    return {"pivots_phase1": int(it1.max()), "pivots_phase2": int(it2.max()),
+            "pivots_total": int((it1 + it2).sum()), "host_syncs": syncs[0],
+            "phases_wall_s": wall}
+
+
+def _profiled_pivots(data, pivots):
+    """`pivots` trips of the phase-1 pivot loop from the crash basis
+    under torch.profiler: a steady window, since every trip refactors a
+    basis of the same size.  Device kernel ms and launches per trip, the
+    device's idle share, and the share of device time in the library QR
+    (cuSOLVER geqrf and its Householder helpers).  A window, not the
+    whole solve: analysing a trace takes about 0.3 ms per launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cvxopt_tpu_torch import simplex as sx
+    S = sx._setup(*(torch.as_tensor(u, device="cuda") for u in data))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sx._phase(S["W"], S["r"], S["c1"], ~S["is_art"], S["basis0"],
+                  pivots)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    dev_ms = sum(r["device_ms"] for r in rows)
+    check(dev_ms > 0, "the profiler saw no device kernels")
+    qr_ms = sum(r["device_ms"] for r in rows
+                if kernel_group(r["name"]) == "library_qr")
+    launches = sum(r["count"] for r in rows)
+    return {"trips": pivots, "profiled_wall_s": wall,
+            "device_kernel_ms": dev_ms, "device_ms_per_trip": dev_ms / pivots,
+            "device_idle_share": 1.0 - dev_ms / 1e3 / wall,
+            "launches_per_trip": launches / pivots,
+            "qr_share_of_device": qr_ms / dev_ms, "top": rows[:4]}
+
+
+def phase_lp_milp(log, results):
+    """The LP modeling and integer path: boeing2 through the modeling
+    layer (IPM, the batched kernel pair at B = 1 in f64) and through the
+    simplex (solver='glpk'); bench.py's 256 batched vertex LPs; the
+    60-binary multi-knapsack through glpk.ilp (node batches in the
+    batched kernel pair, f64) with and without cover cuts."""
+    import numpy as np
+    import torch
+    from scipy.optimize import Bounds, LinearConstraint, linprog, milp
+    from cvxopt_tpu_torch import glpk, modeling, solvers
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    from cvxopt_tpu_torch.simplex import make_simplex
+    rec = {"phase": "lp_milp", "elapsed_s": {}}
+    t_phase = time.perf_counter()
+
+    def mark(part):
+        rec["elapsed_s"][part] = time.perf_counter() - t_phase
+
+    boeing = os.path.join(ROOT, "tests", "data", "boeing2.mps")
+    c, G, h, A, b = data = boeing2_lp()
+    netlib = -315.0187280
+
+    # warm-up: library handles and first-use allocations on small LPs
+    x = modeling.variable(2)
+    modeling.op(modeling.dot(np.array([-4., -5.]), x),
+                np.array([[2., 1.], [1., 2.], [-1., 0.], [0., -1.]]) @ x
+                <= np.array([3., 3., 0., 0.])).solve()
+    glpk.lp(np.array([-4., -5.]), np.eye(2), np.ones(2))
+    glpk.ilp(np.array([-4., -5.]), np.eye(2), np.ones(2), I={0, 1})
+    mark("warm_up")
+
+    # 1a. boeing2 through op().fromfile().solve(): lp -> conelp, chol2
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    prob = modeling.op().fromfile(boeing)
+    ipm = prob.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    rec["boeing2_ipm"] = {
+        "status": ipm["status"], "iterations": ipm["iterations"],
+        "primal_objective": ipm["primal objective"], "wall_s": wall,
+        "launches": counts}
+    check(ipm["status"] == "optimal", f"boeing2 IPM: {ipm['status']}")
+    check(abs(ipm["primal objective"] - netlib) <= 1e-3,
+          f"boeing2 IPM objective {ipm['primal objective']}")
+    _attribute(results, counts, "lp_milp",
+               ("fused_schur_cholesky_batched/boeing2",
+                "fused_cholesky_solve_batched/boeing2"))
+
+    # 1b. boeing2 through the simplex (solver='glpk')
+    opts = {"glpk": {"it_lim": 20000}}
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    spx = solvers.lp(c, G, h, A=A, b=b, solver="glpk", options=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = abs(spx["primal objective"] - ipm["primal objective"]) / \
+        abs(spx["primal objective"])
+    rec["boeing2_simplex"] = {
+        "status": spx["status"], "primal_objective": spx["primal objective"],
+        "primal_infeasibility": spx["primal infeasibility"],
+        "dual_infeasibility": spx["dual infeasibility"], "wall_s": wall,
+        "objective_vs_ipm_rel": rel,
+        "kernel_launches": sum(fc.launch_counts().values())}
+    check(spx["status"] == "optimal", f"boeing2 simplex: {spx['status']}")
+    check(abs(spx["primal objective"] - netlib) <= 1e-3,
+          f"boeing2 simplex objective {spx['primal objective']}")
+    check(max(spx["primal infeasibility"], spx["dual infeasibility"])
+          <= 1e-7, "boeing2 simplex residuals")
+    check(rel <= 1e-6, f"boeing2: simplex and IPM objectives differ {rel}")
+    mark("boeing2")
+    one = [u[None] for u in data]
+    rec["boeing2_simplex"].update(_simplex_phases(one, 20000))
+    rec["boeing2_simplex"]["profile"] = _profiled_pivots(one, 64)
+    mark("boeing2_profile")
+
+    # 2. bench.py's batched vertex LPs: 256 x (n = 16, m = 40, p = 1)
+    (cb, Gb, hb, Ab, bb), Pn = vertex_lps()
+    nb, n = cb.shape
+    run = make_simplex(n, Gb.shape[1], 1, 400, batched=True)
+    run(*(u[:8] for u in (cb, Gb, hb, Ab, bb)))
+    dev = [torch.as_tensor(u, device="cuda") for u in (cb, Gb, hb, Ab, bb)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code, xb, _, _ = run(*dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    code, xb = code.cpu().numpy(), xb.cpu().numpy()
+    objs = np.einsum("bi,bi->b", xb, cb)
+    t0 = time.perf_counter()
+    sobjs = np.array([linprog(cb[i], A_ub=Pn[i], b_ub=hb[i, 2 * n:],
+                              A_eq=Ab[i], b_eq=bb[i], bounds=(0.0, 1.0),
+                              method="highs").fun for i in range(nb)])
+    scipy_s = time.perf_counter() - t0
+    cpu = make_simplex(n, Gb.shape[1], 1, 400, batched=True,
+                       device="cpu")(*(u[:4] for u in (cb, Gb, hb, Ab, bb)))
+    dobj = float(np.max(np.abs(objs - sobjs) / np.maximum(1, np.abs(sobjs))))
+    dx = float(np.abs(xb[:4] - cpu[1].numpy()).max())
+    rec["batched_simplex"] = {
+        "instances": nb, "n": n, "m": int(Gb.shape[1]), "p": 1,
+        "maxiters": 400, "solved": int((code == 0).sum()), "wall_s": wall,
+        "lps_per_s": nb / wall, "scipy_highs_s": scipy_s,
+        "objective_vs_highs_max_rel": dobj, "x_vs_cpu_max_abs": dx}
+    check((code == 0).all(), f"batched simplex: codes {np.unique(code)}")
+    check(dobj <= 1e-9, f"batched simplex objectives vs HiGHS: {dobj}")
+    check(np.array_equal(code[:4], cpu[0].numpy()),
+          "batched simplex: codes differ from the CPU run")
+    check(dx <= 1e-9, f"batched simplex: x differs from the CPU run {dx}")
+    mark("batched_simplex")
+    batch = (cb, Gb, hb, Ab, bb)
+    rec["batched_simplex"].update(_simplex_phases(batch, 400))
+    rec["batched_simplex"]["profile"] = _profiled_pivots(batch, 8)
+    mark("batched_profile")
+
+    # 3. the 60-binary multi-knapsack, with and without cover cuts
+    ck, W, cap = knapsack60()
+    ref = milp(ck, constraints=LinearConstraint(W, -np.inf, cap),
+               integrality=np.ones(60), bounds=Bounds(0, 1))
+    check(ref.status == 0, f"scipy milp: {ref.message}")
+    mark("highs_milp")
+    total = {k: 0 for k in fc.launch_counts()}
+    for cuts in (False, True):
+        st = {}
+        torch.cuda.synchronize()
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        status, xk = glpk.ilp(ck, W, cap, B=list(range(60)), cuts=cuts,
+                              max_nodes=4000, node_batch=16,
+                              options={"_stats": st})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fc.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        obj = float(ck @ xk) if xk is not None else None
+        rec["milp_cuts" if cuts else "milp_no_cuts"] = {
+            "status": status, "objective": obj, "highs_objective": ref.fun,
+            "wall_s": wall, "launches": counts, **st}
+        check(status == "optimal", f"milp (cuts={cuts}): {status}")
+        check(abs(obj - ref.fun) <= 1e-6 * max(1.0, abs(ref.fun)),
+              f"milp (cuts={cuts}) objective {obj} vs HiGHS {ref.fun}")
+    check(rec["milp_cuts"]["nodes"] <= 0.85 * rec["milp_no_cuts"]["nodes"],
+          "cover cuts did not prune the search")
+    mark("milp")
+    _attribute(results, total, "lp_milp",
+               ("fused_schur_cholesky_batched/milp",
+                "fused_cholesky_solve_batched/milp"))
+    rec["nvidia_smi"] = nvidia_smi()
+    emit(rec, log)
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_share", "shape", "paths")
@@ -1028,22 +1384,18 @@ def main(argv=None):
           "tf32": torch.backends.cuda.matmul.allow_tf32}, log)
     if "build" in phases or "kernels" in phases:
         phase_build(log)
-    if "kernels" in phases:
-        phase_kernels(log, results)
-    if "cascade" in phases:
-        phase_cascade(log, results)
-    if "entry" in phases:
-        phase_entry(log, results)
-    if "socp" in phases:
-        phase_socp(log, results)
-    if "conelp_lp" in phases:
-        phase_conelp_lp(log, results)
-    if "sdp" in phases:
-        phase_sdp(log, results)
-    if "cpl" in phases:
-        phase_cpl(log, results)
-    if "nonlinear_front" in phases:
-        phase_nonlinear_front(log, results)
+    seconds = {}
+    for name, run in (("kernels", phase_kernels),
+                      ("cascade", phase_cascade), ("entry", phase_entry),
+                      ("socp", phase_socp), ("conelp_lp", phase_conelp_lp),
+                      ("sdp", phase_sdp), ("cpl", phase_cpl),
+                      ("nonlinear_front", phase_nonlinear_front),
+                      ("lp_milp", phase_lp_milp)):
+        if name in phases:
+            t0 = time.perf_counter()
+            run(log, results)
+            seconds[name] = time.perf_counter() - t0
+    emit({"phase": "seconds", "seconds": seconds}, log)
 
     kernels = []
     for r in results.values():

@@ -10,6 +10,12 @@ dict-valued x in `conelp`, and the structure-exploiting kktsolvers of
 Schur assembly, blocked Cholesky and panel solves in hand-written CUDA
 kernels (`ops/fused_chol.py`, `csrc/fused_chol.cu`).
 
+The LP modeling and integer path: the piecewise-linear modeling DSL
+(`modeling`) with MPS I/O (`mpsio`), the batched dense simplex
+(`simplex`; `lp(..., solver='glpk')`), branch-and-bound with cover cuts
+(`ilp`), both under the `glpk` namespace, and the MOSEK bridge (`msk`;
+`solver='mosek'`).
+
 Module and public names follow `cvxopt_tpu`, so each function has a
 twin there.  This package imports torch and numpy only.
 
@@ -28,6 +34,9 @@ from cvxopt_tpu_torch.linops import LinearOperator, \
     aslinearoperator  # noqa: E402
 from cvxopt_tpu_torch import kkt_structured  # noqa: E402
 from cvxopt_tpu_torch import solvers  # noqa: E402
+from cvxopt_tpu_torch import modeling  # noqa: E402
+from cvxopt_tpu_torch import mpsio  # noqa: E402
 
 __all__ = ["ConeDims", "resolve_device", "LinearOperator",
-           "aslinearoperator", "kkt_structured", "solvers"]
+           "aslinearoperator", "kkt_structured", "solvers", "modeling",
+           "mpsio"]

@@ -1023,15 +1023,13 @@ def make_conelp_refresh(dims: ConeDims, kktsolver: str = "default",
     never restarts.  With ``segment`` set, the core instead runs
     open-loop segments of that many iterations and any inconclusive
     exit refreshes.  Returns the raw result dict plus cumulative
-    `iterations` and `refresh_rounds`."""
+    `iterations` (at most `maxiters`) and `refresh_rounds`."""
     se = None if segment is not None else stall_exit
-    seg_iters = segment if segment is not None else maxiters
-    kw = dict(kktsolver=kktsolver, maxiters=seg_iters, abstol=abstol,
-              reltol=reltol, feastol=feastol, refinement=refinement,
-              kktreg=kktreg, factor_dtype=factor_dtype, stall_exit=se,
-              device=device)
-    cold = make_conelp(dims, **kw)
-    ws = make_conelp_ws(dims, **kw)
+    seg_iters = min(segment, maxiters) if segment is not None else maxiters
+    kw = dict(kktsolver=kktsolver, abstol=abstol, reltol=reltol,
+              feastol=feastol, refinement=refinement, kktreg=kktreg,
+              factor_dtype=factor_dtype, stall_exit=se, device=device)
+    cold = make_conelp(dims, maxiters=seg_iters, **kw)
     conclusive = (STATUS_OPTIMAL, STATUS_PRIMAL_INFEASIBLE,
                   STATUS_DUAL_INFEASIBLE)
 
@@ -1049,6 +1047,10 @@ def make_conelp_refresh(dims: ConeDims, kktsolver: str = "default",
         r = 0
         while (wants_refresh(int(out["status"])) and r < rounds
                and total < maxiters):
+            # each round's warm core gets what is left of maxiters, so
+            # the cumulative count never exceeds it
+            ws = make_conelp_ws(dims, maxiters=min(seg_iters,
+                                                   maxiters - total), **kw)
             out = ws(c, G, h, A, b, out["x"], out["y"], out["z"])
             total += int(out["iterations"])
             r += 1

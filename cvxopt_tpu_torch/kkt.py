@@ -332,11 +332,8 @@ def _kkt_chol2_adaptive(G, dims: ConeDims, A):
         Bsz = _difull(W).shape[0]
         dev = GG.device
         Gs32 = _scaled_G(GG, W, dims, f32, Bsz)
-        S32 = Gs32.transpose(-1, -2) @ Gs32
-        if H is not None:
-            S32 = S32 + H.to(f32)
         # the equilibrated float32 factor, in the fused kernels as every
-        # other kkt_chol2 factor (S32 itself is kept for the probe)
+        # other kkt_chol2 factor
         H32 = torch.zeros((n, n), dtype=f32, device=dev) if H is None \
             else H.to(f32)
         rows32 = _kernel_factor(
@@ -347,18 +344,21 @@ def _kkt_chol2_adaptive(G, dims: ConeDims, A):
         def solve32(V):                              # V (B, n, k)
             return _colvec(V.to(f32), rows32).to(io_dtype)
 
-        # probe: one f32 solve, its residual in the working dtype
-        # against the f32-valued Gram matrix (decision only)
-        Sp = S32.to(io_dtype)
+        # probe: one f32 solve, its residual against the true S in the
+        # working dtype, as Gs'(Gs t) + H t (two mat-vecs; S itself is
+        # not formed)
+        Gs = _scaled_G(GG, W, dims, io_dtype, Bsz)
         r0 = torch.full((Bsz, n, 1), 1.0 / float(n) ** 0.5,
                         dtype=io_dtype, device=dev)
-        relres = torch.linalg.vector_norm(
-            (Sp @ solve32(r0) - r0).squeeze(-1), dim=-1)
+        t = solve32(r0)
+        St = Gs.transpose(-1, -2) @ (Gs @ t)
+        if H is not None:
+            St = St + H @ t
+        relres = torch.linalg.vector_norm((St - r0).squeeze(-1), dim=-1)
         # NaN-safe: a non-PD (in f32) S must take the accurate branch
         need64 = ~(relres <= 1e-6)
 
         if bool(need64.any()):
-            Gs = _scaled_G(GG, W, dims, io_dtype, Bsz)
             S64 = Gs.transpose(-1, -2) @ Gs
             if H is not None:
                 S64 = S64 + H

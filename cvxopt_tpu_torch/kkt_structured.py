@@ -49,7 +49,8 @@ def woodbury_solver(d, U, c=1.0, device="cuda"):
 
     With k = U.shape[1] right factors the apply costs one k x k
     Cholesky at build time and two (n, k) products per solve.  `r` may
-    be a vector (n,) or a matrix of columns (n, nrhs)."""
+    be a vector (n,) or a matrix of columns (n, nrhs), a tensor or
+    anything `torch.as_tensor` takes."""
     dev = resolve_device(device)
     d = _f64(d, dev)
     U = _f64(U, dev)
@@ -59,6 +60,7 @@ def woodbury_solver(d, U, c=1.0, device="cuda"):
     L = torch.linalg.cholesky(S)
 
     def solve(r):
+        r = torch.as_tensor(r, dtype=d.dtype, device=d.device)
         rd = r / (d[:, None] if r.dim() == 2 else d)
         return rd - c * (Ud @ _cho_solve(L, Ud.T @ r))
 

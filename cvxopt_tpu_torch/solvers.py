@@ -2,8 +2,10 @@
 
 Twin of `cvxopt_tpu/solvers.py`: the cone solvers (`conelp`, `coneqp`,
 with operator-form G/A/P and callable kktsolvers), their front ends
-(`lp`, `qp`, `socp`, `sdp`), the nonlinear solvers (`cp`, `cpl`, `gp`)
-and the shared `options` dict, read at call time:
+(`lp`, `qp`, `socp`, `sdp`; `lp` with solver='glpk' runs the native
+simplex, and lp/qp/socp with solver='mosek' the MOSEK bridge), the
+nonlinear solvers (`cp`, `cpl`, `gp`) and the shared `options` dict,
+read at call time:
 
     options['show_progress']  bool (default: False)
     options['maxiters']       positive integer (default: 100)
@@ -15,6 +17,8 @@ and the shared `options` dict, read at call time:
     options['kktreg']         static KKT regularization (default: None)
     options['factor_dtype']   'auto' (default; the working dtype),
                               'float32', 'rescue' or 'none'
+    options['glpk']           GLPK parameters for solver='glpk'
+    options['mosek']          MOSEK parameters for solver='mosek'
 """
 
 from cvxopt_tpu_torch.conelp import conelp, make_conelp, \

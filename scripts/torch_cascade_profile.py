@@ -43,28 +43,6 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 3
 
-# device-kernel name fragments -> group of the breakdown
-GROUPS = (
-    ("hand_written", ("schur_assemble", "schur_factor", "solve_few",
-                      "solve_many")),
-    ("library_qr", ("geqr", "larf", "orgqr", "ormqr", "householder",
-                    "geqr2", "larft")),
-    ("library_eigh", ("syev", "sytr", "stedc", "steqr", "jacobi", "heev",
-                      "sytd", "latrd", "laed", "ormtr", "stedx")),
-    ("library_chol_lu_trsm", ("potr", "getr", "trsm", "trsv", "trmm",
-                              "triangular", "lu_", "cholesky")),
-    ("matmul", ("gemm", "gemv", "cutlass", "sgemm", "dgemm", "bmm")),
-)
-
-
-def _group(name):
-    low = name.lower()
-    for grp, frags in GROUPS:
-        if any(f in low for f in frags):
-            return grp
-    return "other"
-
-
 def _setup(path, kktsolver):
     """(solve, data on the card, description) for one path."""
     import torch
@@ -141,13 +119,6 @@ def _library_times():
     return out
 
 
-def _dev_time(evt):
-    for k in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, k):
-            return getattr(evt, k)
-    return 0.0
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="cascade",
@@ -164,7 +135,7 @@ def main(argv=None):
         print("no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import nvidia_smi
+    from chip_smoke import device_rows, kernel_group, nvidia_smi
     import cvxopt_tpu_torch  # noqa: F401  (sets TF32 off)
     from torch.profiler import ProfilerActivity, profile
 
@@ -197,21 +168,12 @@ def main(argv=None):
         solve(*data)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: a CPU op's device time repeats the
-        # kernels it launched
-        on_device = "CUDA" in str(getattr(e, "device_type", "CUDA"))
-        dt = _dev_time(e)
-        if on_device and dt > 0:
-            rows.append({"name": e.key[:120], "count": e.count,
-                         "device_ms": dt / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = device_rows(prof)
     dev_ms = sum(r["device_ms"] for r in rows)
     launches = sum(r["count"] for r in rows)
     groups = {}
     for r in rows:
-        g = groups.setdefault(_group(r["name"]),
+        g = groups.setdefault(kernel_group(r["name"]),
                               {"device_ms": 0.0, "launches": 0})
         g["device_ms"] += r["device_ms"]
         g["launches"] += r["count"]

@@ -4,6 +4,8 @@ against cvxopt_tpu.solvers on the same inputs (float64, CPU): equal
 status strings and iteration counts, x and the split s/z blocks within
 1e-8, and the documented answers."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -154,13 +156,21 @@ def test_options_are_read_at_call_time():
     assert ts.lp(c, G, h, device="cpu")["status"] == "optimal"
 
 
-def test_external_solvers():
+def test_external_solvers(monkeypatch):
+    """solver='glpk' runs the port's simplex; solver='mosek' reaches the
+    MOSEK bridge, which raises ImportError without the `mosek` package
+    (tests/test_torch_msk.py drives it on a stub); sdp has no 'mosek'
+    branch, as in the JAX package; 'dsdp' and unknown names raise."""
     c, G, h = np.array([1.0]), np.array([[-1.0]]), np.array([0.0])
-    for solver, item in (("glpk", "item 16"), ("mosek", "item 17")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.lp(c, G, h, solver=solver, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    sol = ts.lp(c, G, h, solver="glpk", device="cpu")
+    assert sol["status"] == "optimal" and sol["x"].tolist() == [0.0]
+    monkeypatch.setitem(sys.modules, "mosek", None)
+    with pytest.raises(ImportError):
+        ts.lp(c, G, h, solver="mosek", device="cpu")
+    with pytest.raises(ImportError):
         ts.qp(np.eye(1), c, solver="mosek", device="cpu")
+    with pytest.raises(ValueError):
+        ts.sdp(c, solver="mosek", device="cpu")
     with pytest.raises(ValueError):
         ts.sdp(c, solver="dsdp", device="cpu")
     with pytest.raises(ValueError):

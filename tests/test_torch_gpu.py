@@ -349,3 +349,58 @@ def test_batched_cpl_on_card_matches_cpu(cuda_device):
     assert (out["status"] == 0).all() and (ref["status"] == 0).all()
     assert torch.equal(out["iterations"].cpu(), ref["iterations"])
     assert float((out["x"].cpu() - ref["x"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,m,nrhs", [(1, 192, 378, 4), (16, 64, 157, 1),
+                                        (5, 64, 125, 1)])
+def test_lp_milp_kernel_shapes_match_plain_on_card(cuda_device, B, n, m,
+                                                   nrhs):
+    """The lp_milp path's f64 shapes (chip_smoke.py): the batched pair
+    with shared Gt and P = 0 at boeing2's (n = 143 padded to 192,
+    m = 378, solves at nrhs 1 and 4) and at the ilp node batches'
+    (n = 60 padded to 64, m = 157 with the cut pool, 125 without)."""
+    rng = np.random.default_rng(17)
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    _, Gt, _, d2 = _problem(rng, B, n, m, kw)
+    P = torch.zeros((B, n, n), **kw)
+    L, D = fc.fused_schur_cholesky_batched(P, Gt, d2, tb=1)
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    assert _rel(L, Lr) <= 1e-12 and _rel(D, Dr) <= 1e-12
+    for k in {1, nrhs}:
+        rhs = torch.as_tensor(rng.standard_normal((B, k, n)), **kw)
+        x = fc.fused_cholesky_solve_batched(L, D, rhs, tb=1)
+        assert _rel(x, fc.fused_cholesky_solve_ref(Lr, Dr, rhs)) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_simplex_on_card_matches_cpu(cuda_device):
+    """make_simplex(batched=True) on 32 of bench.py's vertex LPs on the
+    card against the CPU run: equal codes, x within 1e-9."""
+    from chip_smoke import vertex_lps
+    from cvxopt_tpu_torch.simplex import make_simplex
+    (c, G, h, A, b), _ = vertex_lps(nb=32)
+    args = (c, G, h, A, b)
+    out = make_simplex(16, 40, 1, 400, batched=True,
+                       device=cuda_device)(*args)
+    ref = make_simplex(16, 40, 1, 400, batched=True, device="cpu")(*args)
+    assert torch.equal(out[0].cpu(), ref[0]) and (ref[0] == 0).all()
+    assert float((out[1].cpu() - ref[1]).abs().max()) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_ilp_on_card_matches_cpu(cuda_device):
+    """glpk.ilp on a 20-binary knapsack on the card against the CPU run:
+    the same status and objective, the batched kernel pair launched."""
+    from cvxopt_tpu_torch import glpk
+    rng = np.random.default_rng(18)
+    c = -rng.uniform(1, 10, 20)
+    W = rng.uniform(1, 10, (3, 20))
+    cap = 0.3 * W.sum(axis=1)
+    kw = dict(B=list(range(20)), node_batch=8, max_nodes=2000)
+    ref = glpk.ilp(c, W, cap, device="cpu", **kw)
+    fc.reset_launch_counts()
+    out = glpk.ilp(c, W, cap, device=cuda_device, **kw)
+    assert fc.launch_counts()["fused_schur_cholesky_batched"] > 0
+    assert out[0] == ref[0] == "optimal"
+    assert abs(float(c @ out[1]) - float(c @ ref[1])) <= 1e-6

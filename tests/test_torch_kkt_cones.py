@@ -155,6 +155,62 @@ def test_adaptive_factor_solves_the_kkt_system():
         1.0, float(ref[0][1].abs().max()))
 
 
+def _probe_instance(seed, td, n):
+    """G, W and H of one 'l'-cone instance with s, z spread over up to
+    8 decades, and the adaptive probe's residual both ways: against the
+    float32 Gram matrix and against the true S = Gs'Gs + H."""
+    from cvxopt_tpu_torch.scaling import compute_scaling
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(seed)
+    G = torch.as_tensor(rng.standard_normal((td.l, n)))
+    k = rng.uniform(0, 8)
+    s = torch.as_tensor(np.logspace(-k, 0, td.l)[None])
+    z = torch.as_tensor(np.logspace(0, -k, td.l)[None])
+    H = (torch.eye(n, dtype=f64) * 10 ** rng.uniform(-6, 0)).expand(1, n, n)
+    W, _ = compute_scaling(s, z, td)
+    Gs32 = tk._scaled_G(G, W, td, f32, 1)
+    rows = tk._kernel_factor(H.to(f32), Gs32.transpose(-1, -2),
+                             torch.ones(Gs32.shape[:-1], dtype=f32), n,
+                             True, False)
+    r0 = torch.full((1, n, 1), 1.0 / n ** 0.5, dtype=f64)
+    t = tk._colvec(r0.to(f32), rows).to(f64)
+    S32 = (Gs32.transpose(-1, -2) @ Gs32 + H.to(f32)).to(f64)
+    Gs = tk._scaled_G(G, W, td, f64, 1)
+    St = Gs.transpose(-1, -2) @ (Gs @ t) + H @ t
+    res = [float(torch.linalg.vector_norm(v - r0)) for v in (S32 @ t, St)]
+    return G, W, H, res
+
+
+def test_adaptive_probe_takes_its_residual_against_the_true_s(monkeypatch):
+    """An instance whose probe residual passes the 1e-6 threshold against
+    the float32 Gram matrix but not against the true S: the probe must
+    send it to the working-precision factor, whose solve then equals the
+    float64 'chol2' solve."""
+    td, n = TDims(l=8), N
+    # seeds found by scanning this generator; the first whose residuals
+    # straddle the threshold on this machine's float32 arithmetic is used
+    for seed in (515, 710, 824, 65, 71, 249, 303, 406, 480, 549):
+        G, W, H, (res32, res) = _probe_instance(seed, td, n)
+        if res32 <= 1e-6 < res:
+            break
+    else:
+        pytest.fail("no instance straddles the probe threshold")
+    calls = []
+    real = tk.eigh_accurate
+    monkeypatch.setattr(tk, "eigh_accurate",
+                        lambda S: calls.append(S.shape) or real(S))
+    rng = np.random.default_rng(seed + 1)
+    A = torch.as_tensor(rng.standard_normal((1, n)))
+    rhs = [torch.as_tensor(rng.standard_normal((1, k))) for k in (n, 1, 8)]
+    ref = tk.get_kktsolver("chol2", G, td, A)(W, H)(*rhs)
+    out = tk.get_kktsolver("chol2", G, td, A,
+                           factor_dtype="adaptive")(W, H)(*rhs)
+    assert calls, "the probe kept the float32 factor"
+    for u, v in zip(out, ref):
+        assert float((u - v).abs().max()) <= 1e-10 * max(
+            1.0, float(v.abs().max()))
+
+
 def test_singular_systems_give_nonfinite_not_exceptions():
     """A zero column of G with P = 0: every strategy returns NaN or inf
     for that instance instead of raising, and solves its neighbour."""

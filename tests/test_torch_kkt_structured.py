@@ -38,6 +38,22 @@ def test_woodbury_solver():
                                    rtol=1e-9, atol=1e-11)
 
 
+def test_woodbury_solver_takes_numpy_rhs():
+    """solve(r) with r a numpy vector or matrix, as the JAX twin takes
+    it, equals the JAX solve at 1e-12."""
+    rng = np.random.default_rng(1)
+    n, k = 25, 3
+    d = rng.uniform(0.5, 2.0, n)
+    U = rng.standard_normal((n, k))
+    solve = tks.woodbury_solver(d, U, c=2.0, device="cpu")
+    jsolve = jks.woodbury_solver(d, U, c=2.0)
+    for r in (rng.standard_normal(n), rng.standard_normal((n, 4))):
+        out = solve(r)
+        assert out.dtype == torch.float64 and out.shape == r.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(jsolve(r)),
+                                   rtol=1e-12, atol=1e-12)
+
+
 def test_l1_library_solver():
     rng = np.random.default_rng(2)
     m, n = 60, 20

@@ -22,6 +22,8 @@ from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade, \
 from cvxopt_tpu_torch import conelp as tlp
 from cvxopt_tpu_torch import solvers, kkt_structured
 from cvxopt_tpu_torch.cvxprog import make_cpl
+from cvxopt_tpu_torch import glpk, modeling
+from cvxopt_tpu_torch.simplex import make_simplex
 from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops import _build
 
@@ -64,6 +66,8 @@ def test_no_jax_imports():
     names = {os.path.relpath(p, PKG) for p in srcs}
     for mod in ("conelp.py", "frontends.py", "solvers.py", "kkt.py",
                 "cvxprog.py", "kkt_structured.py", "_tree.py",
+                "mpsio.py", "modeling.py", "msk.py", "simplex.py",
+                "glpk.py", "ilp.py",
                 os.path.join("ops", "blockinv.py"),
                 os.path.join("ops", "jacobi.py")):
         assert mod in names
@@ -77,6 +81,19 @@ def test_forbidden_matches_exact_module_names():
     assert not _forbidden("cvxopt_tpu_torch.cones")
     assert _forbidden("cvxopt_tpu") and _forbidden("cvxopt_tpu.kkt")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping_x")
+
+
+def test_package_namespace():
+    """modeling and mpsio are exported as in cvxopt_tpu/__init__.py;
+    glpk, msk, simplex and ilp are submodules under their JAX names."""
+    import importlib
+    for name in ("modeling", "mpsio"):
+        assert name in cvxopt_tpu_torch.__all__
+        assert getattr(cvxopt_tpu_torch, name).__name__ == \
+            "cvxopt_tpu_torch." + name
+    for name in ("glpk", "msk", "simplex", "ilp"):
+        importlib.import_module("cvxopt_tpu_torch." + name)
+    assert set(glpk.__all__) == {"lp", "ilp", "options"}
 
 
 def test_tf32_off():
@@ -120,6 +137,13 @@ def test_entry_points_raise_without_card(no_card):
         lambda: kkt_structured.l1_operator(np.eye(2)),
         lambda: kkt_structured.kkt_l1(np.eye(2)),
         lambda: kkt_structured.kkt_l1regls(np.eye(2)),
+        lambda: glpk.lp(np.ones(2), -np.eye(2), np.zeros(2)),
+        lambda: glpk.ilp(np.ones(2), -np.eye(2), np.zeros(2), I={0}),
+        lambda: solvers.lp(np.ones(2), -np.eye(2), np.zeros(2),
+                           solver="glpk"),
+        lambda: make_simplex(2, 2, 0, 10),
+        lambda: modeling.op(modeling.variable(), [
+            modeling.variable() >= 0]).solve(),
         lambda: fc.fused_schur_cholesky(torch.eye(64), torch.ones(64, 2),
                                         torch.ones(2)),
         lambda: fc.fused_cholesky_solve(torch.eye(64),

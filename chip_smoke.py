@@ -80,7 +80,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
-          "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp")
+          "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp", "sparse")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
@@ -292,6 +292,72 @@ def knapsack60(seed=11):
     c = -rng.uniform(1, 10, 60)
     W = rng.uniform(1, 10, (5, 60))
     return c, W, 0.3 * W.sum(axis=1)
+
+
+def chain_lp(n, seed=0):
+    """bench.py's `_chain_lp` (tests/test_sparse_kkt.py's generator),
+    vectorized: min c'x s.t. 0 <= x <= 1 (rows 2i, 2i+1) and
+    |x_i - x_{i+1}| <= 0.5 (rows 2n+2i, 2n+2i+1), as scipy CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal(n) * 0.1
+    i = np.arange(n)
+    j = np.arange(n - 1)
+    r0 = 2 * n + 2 * j
+    rows = np.concatenate([2 * i, 2 * i + 1, r0, r0, r0 + 1, r0 + 1])
+    cols = np.concatenate([i, i, j, j + 1, j, j + 1])
+    vals = np.concatenate([-np.ones(n), np.ones(n), np.ones(n - 1),
+                           -np.ones(n - 1), -np.ones(n - 1), np.ones(n - 1)])
+    m = 2 * n + 2 * (n - 1)
+    G = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    h = np.concatenate([np.tile([0.0, 1.0], n), np.full(2 * (n - 1), 0.5)])
+    return c, G, h
+
+
+def banded_spd(n=60, kd=3, seed=0):
+    """tests/test_cholmod_sys.py's `_banded_spd` built sparse (the same
+    draws): B B' + n I for a random band B of width kd, under a random
+    symmetric permutation."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    B = sp.csr_matrix((n, n))
+    for d in range(kd + 1):
+        v = rng.standard_normal(n - d) * (0.3 if d else 1.0)
+        B = B + sp.diags(v, -d) + (sp.diags(v, d) if d else 0)
+    A = (B @ B.T + n * sp.eye(n)).tocsr()
+    p = rng.permutation(n)
+    return A[p][:, p].tocsr()
+
+
+def arrow_spd(n=256, head=8, seed=1):
+    """tests/test_cholmod_sys.py's `_arrow_spd`: a diagonal plus dense
+    head rows and columns."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    A = sp.lil_matrix((n, n))
+    A.setdiag(rng.uniform(1.0, 2.0, n) + n)
+    C = 0.3 * rng.standard_normal((head, n - head))
+    A[:head, head:] = C
+    A[head:, :head] = C.T
+    return sp.csr_matrix(A)
+
+
+def unsym_arrow(n, head=10, seed=0):
+    """tests/test_blocksparse.py's `_unsym_arrow`."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    A = sp.lil_matrix((n, n))
+    A.setdiag(rng.uniform(5.0, 9.0, n))
+    A[:head, head:] = 0.4 * rng.standard_normal((head, n - head))
+    A[head:, :head] = 0.2 * rng.standard_normal((n - head, head))
+    for d in (1, 2):
+        A.setdiag(0.3 * rng.standard_normal(n - d), d)
+        A.setdiag(0.2 * rng.standard_normal(n - d), -d)
+    return sp.csr_matrix(A)
 
 
 # ---- phases --------------------------------------------------------------
@@ -1357,6 +1423,308 @@ def phase_lp_milp(log, results):
     emit(rec, log)
 
 
+# ---- the sparse direct path ------------------------------------------------
+
+class _CountingKKT:
+    """A kktsolver wrapper that counts factor and solve calls and runs
+    torch.profiler over the IPM iterations whose factors are calls
+    `window` (start, stop) - the loop calls the factor once at the start
+    and once per iteration."""
+
+    def __init__(self, kkt, window=None):
+        self.kkt, self.window = kkt, window
+        self.factors = self.solves = 0
+        self.prof = None
+        self.window_wall = None
+
+    def __call__(self, W):
+        import torch
+        self.factors += 1
+        if self.window and self.factors in self.window:
+            torch.cuda.synchronize()
+            if self.factors == self.window[0]:
+                from torch.profiler import ProfilerActivity, profile
+                # device activity only: the window holds ~10^5 launches,
+                # and the trace's analysis costs per event
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+                self._t0 = time.perf_counter()
+            else:
+                self.window_wall = time.perf_counter() - self._t0
+                self.prof.stop()
+        solve = self.kkt(W)
+
+        def counted(bx, by, bz):
+            self.solves += 1
+            return solve(bx, by, bz)
+
+        return counted
+
+
+def _sparse_lp_window(c, G, h, maxiters, dev):
+    """lp_sparse's path (the pattern-routed kktsolver and ELL operator
+    in conelp), instrumented: factor and solve calls, host syncs (CUDA
+    sync debug mode), and a torch.profiler window over IPM iterations 2
+    and 3."""
+    import warnings
+    import torch
+    from cvxopt_tpu_torch import solvers
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.ops import sparse_kkt as sk
+    dims = ConeDims(l=G.shape[0])
+    kkt = _CountingKKT(sk._pick_sparse_kkt(G, dims, None, None,
+                                           torch.float64, device=dev),
+                       window=(3, 5))
+    Gop = sk._as_ops(G, torch.float64, dev)
+    t = [torch.as_tensor(u, device=dev) for u in (c, h)]
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sol = solvers.conelp(t[0], Gop, t[1], dims=dims, kktsolver=kkt,
+                                 options={"maxiters": maxiters}, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    check(kkt.prof is not None and kkt.window_wall is not None,
+          "the profiled window did not close")
+    t0 = time.perf_counter()
+    rows = device_rows(kkt.prof)
+    analysis_s = time.perf_counter() - t0
+    dev_ms = sum(r["device_ms"] for r in rows)
+    check(dev_ms > 0, "the profiler saw no device kernels")
+    launches = sum(r["count"] for r in rows)
+    return sol, {"trace_analysis_s": analysis_s,
+        "factor_calls": kkt.factors, "solve_calls": kkt.solves,
+        "host_syncs": syncs, "window_iterations": 2,
+        "window_wall_s": kkt.window_wall, "window_device_ms": dev_ms,
+        "device_ms_per_iteration": dev_ms / 2,
+        "launches_per_iteration": launches / 2,
+        "idle_share_profiled_window": 1.0 - dev_ms / 1e3 / kkt.window_wall,
+        "top": rows[:6]}
+
+
+def _rel_res(A, x, b):
+    import numpy as np
+    return float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+
+
+def _blas_lapack_fft_sweep(n, dev):
+    """One call of each listed blas/lapack/fft function on `dev` tensors
+    at n x n against numpy/scipy; returns {name: (relative error,
+    seconds)}."""
+    import numpy as np
+    import scipy.fft as sfft
+    import scipy.linalg as sla
+    import torch
+    from cvxopt_tpu_torch.ops import blas, lapack
+    from cvxopt_tpu_torch.utils import fft
+    rng = np.random.default_rng(12)
+    F = rng.standard_normal((n, n))
+    A = F @ F.T / n + np.eye(n)
+    M = rng.standard_normal((n, n)) + n ** 0.5 * np.eye(n)
+    b = rng.standard_normal(n)
+    x = rng.standard_normal((n, 4))
+    T = lambda a: torch.as_tensor(a, device=dev)          # noqa: E731
+    H = lambda t: t.cpu().numpy()                          # noqa: E731
+
+    def err(got, want):
+        return float(np.abs(got - want).max() / max(np.abs(want).max(), 1.0))
+
+    checks = {
+        "blas.gemm": lambda: err(H(blas.gemm(T(M), T(x))), M @ x),
+        "blas.trsm": lambda: err(H(blas.trsm(T(np.tril(A)), T(x))),
+                                 sla.solve_triangular(np.tril(A), x,
+                                                      lower=True)),
+        "lapack.potrf": lambda: err(H(lapack.potrf(T(A))),
+                                    np.linalg.cholesky(A)),
+        "lapack.gesv": lambda: err(H(lapack.gesv(T(M), T(b))[1]),
+                                   np.linalg.solve(M, b)),
+        "lapack.sytrf/sytrs": lambda: err(
+            H(lapack.sytrs(lapack.sytrf(T(np.tril(A - 2 * np.eye(n)))),
+                           T(b))), np.linalg.solve(A - 2 * np.eye(n), b)),
+        "lapack.geqrf/orgqr": lambda: max(
+            err(H(lapack.orgqr(lapack.geqrf(T(M))) @ lapack.geqrf(T(M))[1]),
+                M),
+            err(H(lapack.orgqr(lapack.geqrf(T(M))).T
+                  @ lapack.orgqr(lapack.geqrf(T(M)))), np.eye(n))),
+        "lapack.geqp3": lambda: _geqp3_err(lapack.geqp3(T(M)), M, err),
+        "lapack.syev": lambda: err(H(lapack.syev(T(A), jobz="N")),
+                                   np.linalg.eigvalsh(A)),
+        "lapack.gesvd": lambda: err(H(lapack.gesvd(T(M))[1]),
+                                    np.linalg.svd(M, compute_uv=False)),
+        "lapack.gees": lambda: _gees_err(lapack.gees(T(M)), M, err),
+    }
+    for t in (1, 2, 3, 4):
+        checks[f"fft.dct{t}"] = (lambda t=t: err(H(fft.dct(T(x), type=t)),
+                                                 sfft.dct(x, type=t, axis=0)))
+        checks[f"fft.dst{t}"] = (lambda t=t: err(H(fft.dst(T(x), type=t)),
+                                                 sfft.dst(x, type=t, axis=0)))
+    out = {}
+    for name, fn in checks.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = fn()
+        out[name] = {"rel_err": e, "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _geqp3_err(res, M, err):
+    import numpy as np
+    Q, R, piv = (u.cpu().numpy() for u in res)
+    d = np.abs(np.diag(R))
+    order = float(np.maximum(d[1:] - d[:-1], 0).max() / d.max())
+    return max(err(Q @ R, M[:, piv]), err(Q.T @ Q, np.eye(M.shape[0])),
+               order)
+
+
+def _gees_err(res, M, err):
+    S, _, V = (u.cpu().numpy() for u in res)
+    return err(V @ S @ V.T, M)
+
+
+def phase_sparse(log, results, dev="cuda", n=100_000, n_cmp=20_000,
+                 n_band=10_000, n_arrow=4096, n_lu=3000, n_dense=512):
+    """The sparse direct path: bench.py's chain LP (n = 100,000, m =
+    399,998) through ops.sparse_kkt.lp_sparse on the card against
+    scipy's HiGHS; the same path instrumented (factor and solve calls,
+    host syncs, a profiled window of two IPM iterations); the chain LP
+    at n = 20,000 on the card against the port's CPU run; then one call
+    each of cholmod (banded and blocksparse routes), umfpack, and a
+    blas/lapack/fft sweep on the card."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+    from cvxopt_tpu_torch import cholmod, native, umfpack
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    from cvxopt_tpu_torch.ops import sparse_kkt as sk
+    rec = {"phase": "sparse", "elapsed_s": {}}
+    t_phase = time.perf_counter()
+
+    def mark(part):
+        rec["elapsed_s"][part] = time.perf_counter() - t_phase
+
+    fc.reset_launch_counts()
+    # warm-up: library handles and first-use allocations on a small LP
+    sk.lp_sparse(*chain_lp(500), options={"maxiters": 30}, device=dev)
+    mark("warm_up")
+
+    # 1. the 100k LP through the user's entry point
+    c, G, h = chain_lp(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = sk.lp_sparse(c, G, h, options={"maxiters": 30}, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plan = sk.make_band_plan(G, device="cpu")
+    lp = {"n": n, "m": G.shape[0], "nnz": int(G.nnz),
+          "ell_width": int(np.diff(G.indptr).max()), "kd": plan.kd,
+          "cb": max(128, -(-plan.kd // 8) * 8),
+          "panels": -(-n // max(128, -(-plan.kd // 8) * 8)),
+          "status": sol["status"], "iterations": sol["iterations"],
+          "gap": sol["gap"], "relgap": sol["relative gap"],
+          "primal_objective": sol["primal objective"], "wall_s": wall,
+          "iterations_per_s": sol["iterations"] / wall}
+    check(sol["status"] == "optimal", f"sparse LP: {sol['status']}")
+    x = sol["x"].cpu().numpy()
+    check(np.isfinite(x).all() and x.shape == (n,), "sparse LP: x")
+    mark("lp_100k")
+    t0 = time.perf_counter()
+    ref = linprog(c, A_ub=G, b_ub=h, bounds=(None, None), method="highs")
+    lp["highs_s"] = time.perf_counter() - t0
+    check(ref.status == 0, f"HiGHS: {ref.message}")
+    lp["highs_objective"] = ref.fun
+    lp["objective_vs_highs_rel"] = abs(sol["primal objective"] - ref.fun) \
+        / abs(ref.fun)
+    lp["max_constraint_violation"] = float(max((G @ x - h).max(), 0.0))
+    check(lp["objective_vs_highs_rel"] <= 1e-6,
+          f"sparse LP objective vs HiGHS {lp['objective_vs_highs_rel']}")
+    mark("highs")
+    sol2, inst = _sparse_lp_window(c, G, h, 30, dev)
+    check(sol2["status"] == "optimal" and
+          sol2["iterations"] == sol["iterations"],
+          "instrumented sparse LP differs from the plain run")
+    inst["idle_share_vs_plain_wall"] = 1.0 - \
+        inst["device_ms_per_iteration"] / 1e3 / (wall / sol["iterations"])
+    lp["instrumented"] = inst
+    rec["lp_100k"] = lp
+    mark("lp_100k_instrumented")
+
+    # 2. n = 20,000: the card against the port's CPU run, both with the
+    # blocked factor ('auto' takes it on the card)
+    c2, G2, h2 = chain_lp(n_cmp)
+    gpu = sk.lp_sparse(c2, G2, h2, options={"maxiters": 30}, device=dev)
+    t0 = time.perf_counter()
+    cpu = sk.lp_sparse(c2, G2, h2, options={"maxiters": 30},
+                       method="blocked", device="cpu")
+    dx = float(np.abs(gpu["x"].cpu().numpy() - cpu["x"].numpy()).max())
+    rec["lp_20k_vs_cpu"] = {
+        "n": n_cmp, "status": [gpu["status"], cpu["status"]],
+        "iterations": [gpu["iterations"], cpu["iterations"]],
+        "x_max_abs_diff": dx, "cpu_method": "blocked",
+        "cpu_s": time.perf_counter() - t0}
+    check(gpu["status"] == cpu["status"] == "optimal",
+          "20k LP: a run is not optimal")
+    check(gpu["iterations"] == cpu["iterations"],
+          "20k LP: iterations differ from the CPU run")
+    check(dx <= 1e-6, f"20k LP: x differs from the CPU run by {dx}")
+    mark("lp_20k_vs_cpu")
+
+    # 3. the namespaces, one call each on the card
+    ns = {}
+    for name, A, want in (("cholmod_banded", banded_spd(n_band, 3, 0),
+                           "banded"),
+                          ("cholmod_blocksparse", arrow_spd(n_arrow, 8, 1),
+                           "blocksparse")):
+        b = np.random.default_rng(5).standard_normal(A.shape[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        symb = cholmod.symbolic(A)
+        xs = cholmod.solve(cholmod.numeric(A, symb, device=dev), b)
+        torch.cuda.synchronize()
+        route = "banded" if symb.banded else (
+            "blocksparse" if symb.bsp is not None else "dense")
+        ns[name] = {"n": A.shape[0], "route": route, "kd": symb.kd,
+                    "wall_s": time.perf_counter() - t0,
+                    "rel_residual": _rel_res(A, xs.cpu().numpy(), b)}
+        check(route == want, f"{name}: took the {route} route")
+        check(ns[name]["rel_residual"] <= 1e-10, f"{name}: residual")
+    A = unsym_arrow(n_lu, head=12)
+    b = np.random.default_rng(6).standard_normal(n_lu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    symb = umfpack.symbolic(A)
+    F = umfpack.numeric(A, symb, device=dev)
+    xn = umfpack.solve(F, b).cpu().numpy()
+    xt = umfpack.solve(F, b, trans="T").cpu().numpy()
+    torch.cuda.synchronize()
+    ns["umfpack_blocksparse"] = {
+        "n": n_lu, "route": "blocksparse" if symb.bsp is not None else
+        ("banded" if symb.banded else "dense"),
+        "wall_s": time.perf_counter() - t0,
+        "rel_residual_N": _rel_res(A, xn, b),
+        "rel_residual_T": _rel_res(A.T, xt, b)}
+    check(ns["umfpack_blocksparse"]["route"] == "blocksparse",
+          "umfpack: not the blocksparse route")
+    check(max(ns["umfpack_blocksparse"]["rel_residual_N"],
+              ns["umfpack_blocksparse"]["rel_residual_T"]) <= 1e-12,
+          "umfpack: residual")
+    sweep = _blas_lapack_fft_sweep(n_dense, dev)
+    bad = {k: v["rel_err"] for k, v in sweep.items() if v["rel_err"] > 1e-10}
+    check(not bad, f"blas/lapack/fft sweep: {bad}")
+    ns["dense_sweep"] = {"n": n_dense, **sweep}
+    ns["native"] = native.built()
+    rec["namespaces"] = ns
+    mark("namespaces")
+    counts = fc.launch_counts()
+    check(not any(counts.values()),
+          f"the sparse phase launched fused-Cholesky kernels {counts}")
+    rec["nvidia_smi"] = nvidia_smi()
+    emit(rec, log)
+
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_share", "shape", "paths")
@@ -1390,7 +1758,8 @@ def main(argv=None):
                       ("socp", phase_socp), ("conelp_lp", phase_conelp_lp),
                       ("sdp", phase_sdp), ("cpl", phase_cpl),
                       ("nonlinear_front", phase_nonlinear_front),
-                      ("lp_milp", phase_lp_milp)):
+                      ("lp_milp", phase_lp_milp),
+                      ("sparse", phase_sparse)):
         if name in phases:
             t0 = time.perf_counter()
             run(log, results)

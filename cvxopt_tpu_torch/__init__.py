@@ -16,8 +16,16 @@ The LP modeling and integer path: the piecewise-linear modeling DSL
 (`ilp`), both under the `glpk` namespace, and the MOSEK bridge (`msk`;
 `solver='mosek'`).
 
+The sparse direct path: `ops.sparse_kkt` (`lp_sparse`/`qp_sparse`, the
+banded and tile-map kktsolvers), `ops.banded`, `ops.blocksparse`,
+`ops.spsolve` and the `cholmod`/`umfpack`/`amd` namespaces; the dense
+numeric namespaces `ops.blas`, `ops.lapack`, `utils.fft`; the matrix
+constructors of `base` (`matrix`, `spmatrix` as an uncoalesced torch
+sparse COO tensor, `sparse`, `spdiag`) with the elementwise functions,
+and `normal`/`uniform`/`setseed`/`getseed` on a seeded torch.Generator.
+
 Module and public names follow `cvxopt_tpu`, so each function has a
-twin there.  This package imports torch and numpy only.
+twin there.  This package imports torch, numpy and scipy only.
 
 The IPM diverges on reduced-precision matmul passes, so TF32 is turned
 off for matmuls and cuDNN when the package is imported.
@@ -30,13 +38,34 @@ torch.backends.cudnn.allow_tf32 = False
 
 from cvxopt_tpu_torch.cones import ConeDims  # noqa: E402
 from cvxopt_tpu_torch._device import resolve_device  # noqa: E402
+from cvxopt_tpu_torch import cones  # noqa: E402
+from cvxopt_tpu_torch import scaling  # noqa: E402
+from cvxopt_tpu_torch import kkt  # noqa: E402
 from cvxopt_tpu_torch.linops import LinearOperator, \
     aslinearoperator  # noqa: E402
 from cvxopt_tpu_torch import kkt_structured  # noqa: E402
 from cvxopt_tpu_torch import solvers  # noqa: E402
 from cvxopt_tpu_torch import modeling  # noqa: E402
 from cvxopt_tpu_torch import mpsio  # noqa: E402
+from cvxopt_tpu_torch import base  # noqa: E402
 
-__all__ = ["ConeDims", "resolve_device", "LinearOperator",
-           "aslinearoperator", "kkt_structured", "solvers", "modeling",
-           "mpsio"]
+# the reference's top-level API
+from cvxopt_tpu_torch.base import (  # noqa: E402
+    matrix, spmatrix, sparse, spdiag, exp, log, sqrt, sin, cos, mul,
+    div, emin, emax, trans, ctrans, real, imag,
+)
+from cvxopt_tpu_torch.utils.rng import normal, uniform, setseed, \
+    getseed  # noqa: E402
+from cvxopt_tpu_torch.utils import printing  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ConeDims", "cones", "scaling", "kkt", "solvers", "modeling",
+    "mpsio", "base", "LinearOperator", "aslinearoperator",
+    "matrix", "spmatrix", "sparse", "spdiag", "exp", "log", "sqrt",
+    "sin", "cos", "mul", "div", "emin", "emax", "trans", "ctrans",
+    "real", "imag",
+    "normal", "uniform", "setseed", "getseed", "printing",
+    "__version__", "resolve_device", "kkt_structured",
+]

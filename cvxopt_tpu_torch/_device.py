@@ -29,3 +29,25 @@ def check_on(dev: torch.device, *tensors) -> None:
         if t.device.type != dev.type:
             raise ValueError(
                 f"tensor on {t.device} but device={str(dev)!r}")
+
+
+def as_tensor(x, dev=None, dtype=None):
+    """`x` as a tensor.  A tensor keeps its device (and its dtype unless
+    `dtype` is given); other data goes to `dev` (default: the card,
+    through `resolve_device`).  Python floats and lists of them become
+    float64, as numpy makes them, not torch's float32 default."""
+    if torch.is_tensor(x):
+        return x if dtype is None or x.dtype == dtype else x.to(dtype)
+    import numpy as np
+    dev = resolve_device("cuda") if dev is None else dev
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def tensors(*xs, device=None):
+    """Each of `xs` as a tensor (None stays None).  Non-tensors go to
+    the device of the first tensor among `xs`, else to `device`
+    (default "cuda", through `resolve_device`)."""
+    dev = next((x.device for x in xs if torch.is_tensor(x)), None)
+    if dev is None:
+        dev = resolve_device("cuda" if device is None else device)
+    return tuple(None if x is None else as_tensor(x, dev) for x in xs)

@@ -52,3 +52,13 @@ def startvals_from_numpy(d, *, device, dtype=torch.float64):
                                   device=device) for k in keys if k in d}
         return out or None
     return part(("x", "s")), part(("y", "z"))
+
+
+def spmatrix_from_numpy(V, I, J, size, *, device):
+    """The port's sparse matrix (an uncoalesced torch sparse COO tensor)
+    from triplets, e.g. a JAX BCOO's ``(data, indices[:, 0],
+    indices[:, 1])`` as numpy: the entries keep their order and their
+    duplicates, so sp_I/sp_J/sp_V agree element for element."""
+    from cvxopt_tpu_torch.base import spmatrix
+    return spmatrix(np.asarray(V), np.asarray(I), np.asarray(J),
+                    size=tuple(size), device=device)

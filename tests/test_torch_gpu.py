@@ -404,3 +404,82 @@ def test_ilp_on_card_matches_cpu(cuda_device):
     assert fc.launch_counts()["fused_schur_cholesky_batched"] > 0
     assert out[0] == ref[0] == "optimal"
     assert abs(float(c @ out[1]) - float(c @ ref[1])) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_lp_sparse_on_card_matches_cpu(cuda_device):
+    """lp_sparse on the chain LP at n = 2000: the card's blocked factor
+    against the port's CPU run ('auto': one row per step there), equal
+    status and iterations, x within 1e-6."""
+    from chip_smoke import chain_lp
+    from cvxopt_tpu_torch.ops import sparse_kkt as sk
+    c, G, h = chain_lp(2000, seed=3)
+    out = sk.lp_sparse(c, G, h, options={"maxiters": 30},
+                       device=cuda_device)
+    ref = sk.lp_sparse(c, G, h, options={"maxiters": 30}, device="cpu")
+    assert out["status"] == ref["status"] == "optimal"
+    assert out["iterations"] == ref["iterations"]
+    assert float((out["x"].cpu() - ref["x"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_auto_picks_blocked_on_card(cuda_device, monkeypatch):
+    from chip_smoke import chain_lp
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.ops import banded, sparse_kkt as sk
+    _, G, _ = chain_lp(300)
+    calls = []
+    orig = banded.pbtrf_blocked
+    monkeypatch.setattr(banded, "pbtrf_blocked",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    monkeypatch.setattr(banded, "pbtrf", None)
+    kkt = sk.kkt_chol2_banded(G, ConeDims(l=G.shape[0]), device=cuda_device)
+    kkt({"di": torch.ones(G.shape[0], dtype=torch.float64,
+                          device=cuda_device)})
+    assert calls == [1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["banded", "blocksparse"])
+def test_cholmod_sys_codes_on_card(cuda_device, route):
+    """The CHOLMOD sys table on the card's banded (block-panel factor
+    in band storage) and blocksparse routes against the CPU's, 1e-12
+    relative; sys 2-5 exist on the banded route only."""
+    from chip_smoke import arrow_spd, banded_spd
+    from cvxopt_tpu_torch import cholmod
+    A = banded_spd(300, 3, 0) if route == "banded" else arrow_spd(512, 8, 1)
+    symb = cholmod.symbolic(A)
+    assert (symb.banded if route == "banded" else symb.bsp is not None)
+    Fg = cholmod.numeric(A, symb, device=cuda_device)
+    Fc = cholmod.numeric(A, symb, device="cpu")
+    b = np.random.default_rng(42).standard_normal(A.shape[0])
+    codes = range(9) if route == "banded" else (0, 1, 6, 7, 8)
+    for sys in codes:
+        x = cholmod.solve(Fg, b, sys=sys).cpu()
+        want = cholmod.solve(Fc, b, sys=sys)
+        assert _rel(x, want) <= 1e-12, sys
+    x0 = cholmod.solve(Fg, b).cpu().numpy()
+    assert np.linalg.norm(A @ x0 - b) <= 1e-10 * np.linalg.norm(b)
+
+
+@pytest.mark.gpu
+def test_umfpack_and_namespaces_on_card(cuda_device):
+    from chip_smoke import unsym_arrow
+    from cvxopt_tpu_torch import umfpack
+    from cvxopt_tpu_torch.ops import lapack
+    from cvxopt_tpu_torch.utils import fft
+    A = unsym_arrow(600, head=12, seed=7)
+    b = np.random.default_rng(4).standard_normal(600)
+    F = umfpack.numeric(A, umfpack.symbolic(A), device=cuda_device)
+    for trans, M in (("N", A), ("T", A.T)):
+        x = umfpack.solve(F, b, trans=trans).cpu().numpy()
+        assert np.linalg.norm(M @ x - b) <= 1e-12 * np.linalg.norm(b)
+    M = torch.as_tensor(np.random.default_rng(5).standard_normal((64, 64)),
+                        device=cuda_device)
+    S, w, V = lapack.gees(M)
+    assert S.device.type == "cuda"
+    assert _rel(V @ S @ V.T, M) <= 1e-12
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(33),
+                        device=cuda_device)
+    for t in (1, 2, 3, 4):
+        assert _rel(fft.idct(fft.dct(x, type=t), type=t), x) <= 1e-12

@@ -26,6 +26,11 @@ from cvxopt_tpu_torch import glpk, modeling
 from cvxopt_tpu_torch.simplex import make_simplex
 from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops import _build
+from cvxopt_tpu_torch.ops import sparse_kkt, blocksparse, banded, blas, \
+    lapack
+from cvxopt_tpu_torch import cholmod, umfpack
+from cvxopt_tpu_torch.utils import fft
+import scipy.sparse as sp
 
 # tiny tensors: one thread per test process, so that parallel test
 # workers do not oversubscribe the cores
@@ -67,9 +72,20 @@ def test_no_jax_imports():
     for mod in ("conelp.py", "frontends.py", "solvers.py", "kkt.py",
                 "cvxprog.py", "kkt_structured.py", "_tree.py",
                 "mpsio.py", "modeling.py", "msk.py", "simplex.py",
-                "glpk.py", "ilp.py",
+                "glpk.py", "ilp.py", "base.py", "cholmod.py",
+                "umfpack.py", "amd.py",
+                os.path.join("native", "__init__.py"),
+                os.path.join("utils", "fft.py"),
+                os.path.join("utils", "rng.py"),
+                os.path.join("utils", "printing.py"),
                 os.path.join("ops", "blockinv.py"),
-                os.path.join("ops", "jacobi.py")):
+                os.path.join("ops", "jacobi.py"),
+                os.path.join("ops", "banded.py"),
+                os.path.join("ops", "sparse_kkt.py"),
+                os.path.join("ops", "blocksparse.py"),
+                os.path.join("ops", "spsolve.py"),
+                os.path.join("ops", "blas.py"),
+                os.path.join("ops", "lapack.py")):
         assert mod in names
     bad = [(os.path.relpath(p, ROOT), m) for p in srcs
            for m in _imports(p) if _forbidden(m)]
@@ -155,6 +171,23 @@ def test_entry_points_raise_without_card(no_card):
         lambda: fc.fused_cholesky_solve_batched(
             torch.eye(64).expand(8, 64, 64), torch.ones(8, 1, 64, 64),
             torch.ones(8, 1, 64)),
+        lambda: sparse_kkt.lp_sparse(np.ones(2), sp.eye(2), np.ones(2)),
+        lambda: sparse_kkt.qp_sparse(sp.eye(2), np.ones(2), sp.eye(2),
+                                     np.ones(2)),
+        lambda: sparse_kkt.kkt_chol2_banded(sp.eye(2), dims),
+        lambda: sparse_kkt.make_band_plan(sp.eye(2)),
+        lambda: blocksparse.linsolve(sp.eye(2), np.ones(2)),
+        lambda: cholmod.linsolve(sp.eye(2), np.ones(2)),
+        lambda: cholmod.numeric(np.eye(2), cholmod.symbolic(np.eye(2))),
+        lambda: umfpack.linsolve(sp.eye(2), np.ones(2)),
+        lambda: banded.pbtrf(np.ones((2, 4))),
+        lambda: blas.dot([1.0], [1.0]),
+        lambda: lapack.potrf(np.eye(2)),
+        lambda: fft.dct([1.0, 2.0]),
+        lambda: cvxopt_tpu_torch.matrix([1.0, 2.0]),
+        lambda: cvxopt_tpu_torch.spmatrix([1.0], [0], [0]),
+        lambda: cvxopt_tpu_torch.normal(2),
+        lambda: cvxopt_tpu_torch.uniform(2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

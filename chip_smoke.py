@@ -60,6 +60,24 @@ Phases, each printing one JSON line:
            (node_batch=16) with and without cover cuts against
            scipy.optimize.milp (objective within 1e-6; cuts open at most
            0.85 x the nodes), the batched kernel pair launched in f64
+  sparse   the sparse direct path: bench.py's chain LP at n = 100,000
+           through lp_sparse against HiGHS, a profiled window, n = 20,000
+           against the CPU run, and the cholmod/umfpack/blas/lapack/fft
+           namespaces (no hand-written kernel)
+  parallel the parallel layer in an NCCL process group of world size 1
+           (one card, a file rendezvous): the collectives against the
+           single-device cone functions; __graft_entry__.dryrun_multichip's
+           sharded paths (batched QPs, arrow and block kktsolvers alone
+           and through coneqp, cone reductions, the cone-sharded coneqp,
+           the chol2_inv cascade) against their mesh=None runs; the
+           cascade phase's 1024 x n=256 batch through sharded_batch_solve
+           (every status 0 at 1e-7, x within 1e-12 of the unsharded run,
+           the batched kernels launched); the n = 10,240 block QP of
+           tests/test_block_kkt.py:90-130, unchanged and not convex: one
+           factor + solve of the mesh kktsolver at W = 1.1 I, timed, whose
+           outputs must be non-finite as the JAX package's are, and its
+           local factor and solves (8 x 1280, f64) against their plain
+           versions
 
 Each solver phase sets the kernels' launch counts to 0 just before its
 timed solve and reads them just after.  Then a line with each phase's
@@ -80,7 +98,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
-          "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp", "sparse")
+          "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp", "sparse",
+          "parallel")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
@@ -154,21 +173,21 @@ def kernel_data(B, n, m, dtype, per_instance_gt, seed):
     return P.to(dtype), Gt.to(dtype), dinv2.to(dtype)
 
 
-def scenario_qps(nb, n, seed=0):
+def scenario_qps(nb, n, seed=0, dev="cuda"):
     """bench.py make_batch: min 1/2 x'Px + q'x, 0 <= x <= 1, sum x = 1,
     with P = F F' + 0.1 I, F (n, n/4) / sqrt(n); seeded numpy."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     F = torch.as_tensor(rng.standard_normal((nb, n, n // 4)) / np.sqrt(n),
-                        device="cuda")
+                        device=dev)
     P = F @ F.transpose(1, 2) + 0.1 * torch.eye(n, dtype=torch.float64,
-                                                device="cuda")
-    q = torch.as_tensor(-rng.uniform(0.0, 0.1, (nb, n)), device="cuda")
+                                                device=dev)
+    q = torch.as_tensor(-rng.uniform(0.0, 0.1, (nb, n)), device=dev)
     eye = np.eye(n)
     G = np.concatenate([-eye, eye], axis=0)
     h = np.concatenate([np.zeros(n), np.ones(n)])
-    return (P, q) + tuple(torch.as_tensor(u, device="cuda") for u in
+    return (P, q) + tuple(torch.as_tensor(u, device=dev) for u in
                           (G, h, np.ones((1, n)), np.ones(1)))
 
 
@@ -441,16 +460,20 @@ def _check_factor(fn, P, Gt, d2, dtype_name, label, equilibrate):
     return out, ref, errs
 
 
+def _lib_factor(P, Gt, d2):
+    """The library's factor of the same S: torch's S, then
+    torch.linalg.cholesky (a yardstick; the port calls neither)."""
+    import torch
+    S = torch.baddbmm(P, Gt * d2.unsqueeze(-2), Gt.transpose(-1, -2)) \
+        if Gt.dim() == 3 else P + (Gt * d2.unsqueeze(-2)) @ Gt.T
+    return torch.linalg.cholesky(S)
+
+
 def phase_kernels(log, results):
     import torch
     from cvxopt_tpu_torch.ops import fused_chol as fc
     f32, f64 = torch.float32, torch.float64
     rep = "cvxopt_tpu/ops/pallas_chol.py:"
-
-    def lib_factor(P, Gt, d2):
-        S = torch.baddbmm(P, Gt * d2.unsqueeze(-2), Gt.transpose(-1, -2)) \
-            if Gt.dim() == 3 else P + (Gt * d2.unsqueeze(-2)) @ Gt.T
-        return torch.linalg.cholesky(S)
 
     # -- kernel 3: batched factor, shared Gt (cascade phases A/B)
     B, n, m = 1024, 256, 512
@@ -471,7 +494,7 @@ def phase_kernels(log, results):
         ms=time_ms(lambda: b3(P, Gt, d2)),
         ms_equilibrate=time_ms(lambda: b3(P, Gt, d2, True)),
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
     r = results["fused_schur_cholesky_batched"]
     r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -518,7 +541,7 @@ def phase_kernels(log, results):
         rel_fro_err=e1, max_abs_err=max_abs(L1, ref1[0]),
         ms=time_ms(lambda: k1(P, Gt, d2)),
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
     r = results["fused_schur_cholesky"]
     r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -555,7 +578,7 @@ def phase_kernels(log, results):
         max_abs_err=max_abs(L5, ref5[0]),
         ms=time_ms(lambda: k1(P, Gt, d2)),
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
     r = results["fused_schur_cholesky/socp"]
     r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -600,7 +623,7 @@ def phase_kernels(log, results):
         max_abs_err=max_abs(L7, ref7[0]),
         ms=time_ms(lambda: b3(P, Gt, d2)),
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by)
     r = results["fused_schur_cholesky_batched/lp"]
     r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -638,7 +661,7 @@ def phase_kernels(log, results):
         max_abs_err=max_abs(L9, ref9[0]),
         ms=time_ms(lambda: k1(P, Gt, d2)),
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
         bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
     r = results["fused_schur_cholesky/cpl"]
     r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -686,7 +709,7 @@ def phase_kernels(log, results):
             ms=time_ms(lambda: b1(P, Gt, d2)),
             plain_ms=time_ms(
                 lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-            library_ms=time_ms(lambda: lib_factor(P, Gt, d2)),
+            library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
         r = results["fused_schur_cholesky_batched/" + tag]
         r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -754,7 +777,7 @@ def phase_kernels(log, results):
     emit({"phase": "kernels", "ok": True, "results": results}, log)
 
 
-def phase_cascade(log, results):
+def phase_cascade(log, results, carry):
     import torch
     from cvxopt_tpu_torch.cones import ConeDims
     from cvxopt_tpu_torch.coneqp import make_coneqp_cascade, make_coneqp
@@ -802,6 +825,7 @@ def phase_cascade(log, results):
     dx = float((out["x"][:4].cpu() - ref["x"]).abs().max())
     rec["x_vs_cpu_f64_max_abs"] = dx
     check(dx <= 1e-6, f"cascade x differs from the CPU f64 solve: {dx}")
+    carry["cascade_x"] = out["x"]
     rec["nvidia_smi"] = nvidia_smi()
     emit(rec, log)
 
@@ -1724,6 +1748,507 @@ def phase_sparse(log, results, dev="cuda", n=100_000, n_cmp=20_000,
     emit(rec, log)
 
 
+# ---- the parallel layer (torch.distributed) ---------------------------------
+
+# tests/test_block_kkt.py:90-130, the sharded path's n = 10,240 row, as
+# the JAX test draws it: K = 8 scenarios of nk = 1248 coupled through
+# n0 = 256 variables, local equalities (pk = 4); n = 10,240, m = 9984,
+# p = 32.  Its P is indefinite (the generator scales the coupling blocks
+# by 0.1 whatever nk is), so it is not a convex QP: the phase runs one
+# KKT factor + solve of it, as the JAX test does, and no coneqp.
+BLOCK_QP = dict(K=8, nk=1248, n0=256, l=1248, q=(), pk=4, seed=0)
+BLOCK_QP_D = 1.1          # W = 1.1 I, the JAX test's timed scaling
+
+
+def _on_device(dev, *ts):
+    check(all(t.device == dev for t in ts),
+          f"a result left the mesh's device {dev}")
+
+
+def _xdiff(a, b):
+    return float((a["x"] - b["x"]).abs().max())
+
+
+def parallel_collectives(mesh, dev):
+    """tests/test_collectives.py's reductions (and the plain collectives)
+    on one shard of (l=4, q=(3, 3), s=(2,)) against the single-device
+    cone functions on the same vectors; returns the largest differences
+    (relative to the value)."""
+    import numpy as np
+    import torch
+    from cvxopt_tpu_torch import cones
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.parallel import collectives as coll
+    ld = ConeDims(l=4, q=(3, 3), s=(2,))
+    rng = np.random.default_rng(0)
+    e = cones.cone_identity(ld, device=dev)
+
+    def interior():
+        x = torch.as_tensor(rng.standard_normal(ld.cdim) * 0.1, device=dev)
+        return cones.symmetrize(x + (cones.max_step(x, ld) + 1.0) * e, ld)
+
+    x, y = interior(), interior()
+    t = torch.clamp(torch.maximum(cones.max_step(-x, ld),
+                                  cones.max_step(-y, ld)), min=0.0)
+    step = torch.where(t == 0, torch.ones_like(t),
+                       torch.clamp(0.99 / t, max=1.0))
+    pairs = {
+        "psdot": (coll.psdot(x, y, ld, mesh), cones.sdot(x, y, ld)),
+        "psnrm2": (coll.psnrm2(x, ld, mesh), cones.snrm2(x, ld)),
+        "pmax_step": (coll.pmax_step(-x, ld, mesh), cones.max_step(-x, ld)),
+        "pstep_length": (coll.pstep_length(-x, -y, ld, mesh), step),
+        "psum": (coll.psum(x, mesh), x), "pmax": (coll.pmax(x, mesh), x),
+        "pmin": (coll.pmin(x, mesh), x),
+        "pnorm2": (coll.pnorm2(x, mesh), torch.linalg.vector_norm(x)),
+        "pdot": (coll.pdot(x, y, mesh), x @ y),
+        "all_gather": (coll.all_gather(x, mesh), x[None]),
+        "all_gather_tiled": (coll.all_gather(x, mesh, tiled=True), x),
+        "ppermute_ring": (coll.ppermute_ring(x, mesh, 1), x)}
+    _on_device(dev, *(a for a, _ in pairs.values()))
+    errs = {k: float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+            for k, (a, b) in pairs.items()}
+    check(max(errs.values()) <= 1e-12, f"collectives: {errs}")
+    return errs
+
+
+def _kkt_pair(name, make, W, rhs, dev):
+    """A kktsolver's (ux, uy, W uz) on the mesh against its mesh=None
+    run at one scaling; returns the largest difference."""
+    import torch
+    u = make(True)(W)(*rhs)
+    u1 = make(False)(W)(*rhs)
+    _on_device(dev, *u)
+    err = float(torch.cat([(a - b).reshape(-1) for a, b in zip(u, u1)])
+                .abs().max())
+    check(err <= 1e-12, f"dryrun {name} kktsolver differs from mesh=None "
+          f"by {err}")
+    return err
+
+
+def parallel_dryrun(mesh, cmesh, dev):
+    """__graft_entry__.py:55-251 (dryrun_multichip) at its sizes for the
+    mesh's ranks: each sharded path against its mesh=None (unsharded)
+    run on the same device, and the function's own asserts."""
+    import numpy as np
+    import torch
+    from cvxopt_tpu_torch import cones, solvers
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.coneqp import make_coneqp, make_coneqp_cascade
+    from cvxopt_tpu_torch.parallel import sharded_batch_solve
+    from cvxopt_tpu_torch.parallel import collectives as coll
+    from cvxopt_tpu_torch.parallel.schur import (
+        random_arrow_qp, make_arrow_kktsolver, random_block_qp,
+        make_block_kktsolver)
+    from cvxopt_tpu_torch.parallel.conesolve import make_coneqp_sharded
+    from cvxopt_tpu_torch.scaling import compute_scaling
+    nd = mesh.size
+    rec = {}
+    loose = {"abstol": 1e-4, "reltol": 1e-4, "feastol": 1e-4,
+             "maxiters": 30}
+    T = lambda a: torch.as_tensor(a, device=dev)
+
+    # batched QPs, the batch axis sharded (:84-110)
+    core = make_coneqp(ConeDims(l=4), device=dev, **loose)
+    data = tuple(T(u) for u in entry_qps(2 * nd, 4, np.float64))
+    out = sharded_batch_solve(core, data, mesh=mesh)
+    ref = core(*data)
+    _on_device(dev, out["x"])
+    rec["batch"] = {"status": out["status"].tolist(),
+                    "iterations": out["iterations"].tolist(),
+                    "x_vs_unsharded": _xdiff(out, ref)}
+    check(bool((out["status"] == 0).all()), f"dryrun batch: {rec['batch']}")
+    check(torch.equal(out["iterations"], ref["iterations"])
+          and rec["batch"]["x_vs_unsharded"] <= 1e-12,
+          f"dryrun batch differs from the unsharded solve: {rec['batch']}")
+
+    # the arrow and block kktsolvers on the mesh (:112-147): at one
+    # scaling, and through coneqp
+    qp = random_arrow_qp(K=2 * nd, nk=4, n0=3, mk=4, seed=1, device=dev)
+    bqp = random_block_qp(K=2 * nd, nk=6, n0=4, l=4, q=(3,), pk=2, seed=2,
+                          device=dev)
+    rng = np.random.default_rng(4)
+    for name, q_, make, args, kw in (
+            ("arrow", qp, lambda m: make_arrow_kktsolver(qp, mesh=m),
+             (qp.flat_P(), qp.flat_q(), qp.flat_G(), qp.flat_h()), {}),
+            ("block", bqp, lambda m: make_block_kktsolver(bqp, mesh=m),
+             (bqp.flat_P(), bqp.flat_q(), bqp.flat_G(), bqp.flat_h()),
+             dict(dims=bqp.dims, A=bqp.flat_A(), b=bqp.flat_b()))):
+        dims = bqp.dims if name == "block" else ConeDims(l=q_.K * q_.mk)
+        e = cones.cone_identity(dims, device=dev)
+        s, z = (e + 0.1 * T(rng.uniform(0, 1, dims.cdim)) for _ in range(2))
+        W, _ = compute_scaling(s, z, dims)
+        n = args[0].shape[0]
+        p = kw["A"].shape[0] if kw else 0
+        rhs = (T(rng.standard_normal(n)), T(rng.standard_normal(p)),
+               T(rng.standard_normal(dims.cdim)))
+        kerr = _kkt_pair(name, lambda on: make(mesh if on else None), W,
+                         rhs, dev)
+        sol = solvers.coneqp(*args, kktsolver=make(mesh), options=loose,
+                             device=dev, **kw)
+        one = solvers.coneqp(*args, kktsolver=make(None), options=loose,
+                             device=dev, **kw)
+        _on_device(dev, sol["x"])
+        rec[name] = {"status": sol["status"],
+                     "iterations": sol["iterations"],
+                     "kkt_vs_unsharded": kerr,
+                     "x_vs_unsharded": _xdiff(sol, one)}
+        check(sol["status"] == "optimal", f"dryrun {name}: {sol['status']}")
+        check(sol["iterations"] == one["iterations"]
+              and rec[name]["x_vs_unsharded"] <= 1e-12,
+              f"dryrun {name} differs from mesh=None: {rec[name]}")
+
+    # the cone reductions of a block-sharded vector (:149-185)
+    ld = ConeDims(l=2, q=(3,))
+    v = T(np.random.default_rng(3).standard_normal(ld.cdim) * 0.1)
+    x = v + (cones.max_step(v, ld) + 1.0) * cones.cone_identity(ld,
+                                                                 device=dev)
+    gap = coll.psdot(x, x, ld, cmesh)
+    ts_ = coll.pmax_step(-x, ld, cmesh)
+    _on_device(dev, gap, ts_)
+    rec["reductions"] = {
+        "gap": float(gap), "max_step": float(ts_),
+        "gap_err": abs(float(gap) - float(cones.sdot(x, x, ld))),
+        "max_step_err": abs(float(ts_) - float(cones.max_step(-x, ld)))}
+    check(rec["reductions"]["gap_err"] <= 1e-6 * max(1.0, float(gap))
+          and rec["reductions"]["max_step_err"] <= 1e-6 * max(1.0,
+                                                               abs(float(ts_))),
+          f"dryrun reductions: {rec['reductions']}")
+
+    # the cone-sharded coneqp with equalities, 1e-7 (:187-220), against
+    # the single-device coneqp on the same problem in grouped row order
+    sd = ConeDims(l=2, q=(3,))
+    mk_, n_ = sd.cdim, 6
+    m = nd * mk_
+    rng2 = np.random.default_rng(5)
+    F2 = rng2.standard_normal((n_, n_)) / np.sqrt(n_)
+    P2 = F2 @ F2.T + np.eye(n_)
+    q2 = 0.1 * rng2.standard_normal(n_)
+    G2 = 0.3 * rng2.standard_normal((m, n_))
+    h2 = 0.1 * rng2.standard_normal(m)
+    for k in range(nd):
+        h2[k * mk_:k * mk_ + 3] = 1.0
+    A2 = rng2.standard_normal((1, n_))
+    b2 = A2 @ (0.01 * rng2.standard_normal(n_))
+    sout = make_coneqp_sharded(sd, cmesh, axis="cone", abstol=1e-7,
+                               reltol=1e-6, feastol=1e-7)(
+        T(P2), T(q2), T(G2), T(h2), T(A2), T(b2))
+    _on_device(dev, sout["x"], sout["s"])
+    perm = np.concatenate([np.arange(k * mk_, k * mk_ + 2) for k in range(nd)]
+                          + [np.arange(k * mk_ + 2, (k + 1) * mk_)
+                             for k in range(nd)])
+    single = make_coneqp(ConeDims(l=2 * nd, q=(3,) * nd), device=dev,
+                         abstol=1e-7, reltol=1e-6, feastol=1e-7)(
+        T(P2)[None], T(q2)[None], T(G2[perm]), T(h2[perm]), T(A2), T(b2))
+    rec["conesolve"] = {
+        "status": int(sout["status"]), "iterations": int(sout["iterations"]),
+        "single_device_iterations": int(single["iterations"][0]),
+        "pres": float(sout["pres"]), "dres": float(sout["dres"]),
+        "Ax_minus_b": float((T(A2) @ sout["x"] - T(b2)).abs().max()),
+        "x_vs_single_device": float((sout["x"] - single["x"][0])
+                                    .abs().max())}
+    c = rec["conesolve"]
+    check(c["status"] == 0 and max(c["pres"], c["dres"]) <= 1e-7
+          and c["Ax_minus_b"] <= 1e-7, f"dryrun conesolve: {c}")
+    check(int(single["status"][0]) == 0 and c["x_vs_single_device"] <= 5e-6,
+          f"dryrun conesolve differs from the single-device coneqp: {c}")
+
+    # the chol2_inv cascade, its batch axis on the mesh (:222-251)
+    nb2, n2 = 2 * nd, 16
+    csolve = make_coneqp_cascade(ConeDims(l=2 * n2), kktsolver="chol2_inv",
+                                 maxiters=40, abstol=1e-7, reltol=1e-7,
+                                 feastol=1e-7, device=dev)
+    rng3 = np.random.default_rng(7)
+    Fc = rng3.standard_normal((nb2, n2, n2 // 4)) / np.sqrt(n2)
+    Pc = T(Fc @ Fc.transpose(0, 2, 1) + 0.1 * np.eye(n2))
+    qc = T(-rng3.uniform(0.0, 0.1, (nb2, n2)))
+    Gc = T(np.concatenate([-np.eye(n2), np.eye(n2)]))
+    hc = T(np.concatenate([np.zeros(n2), np.ones(n2)]))
+    Ac, bc = T(np.ones((1, n2))), T(np.ones(1))
+    cout = sharded_batch_solve(lambda P, q: csolve(P, q, Gc, hc, Ac, bc),
+                               (Pc, qc), mesh=mesh)
+    cref = csolve(Pc, qc, Gc, hc, Ac, bc)
+    rec["cascade"] = {"status": cout["status"].tolist(),
+                      "max_gap": float(cout["gap"].max()),
+                      "x_vs_unsharded": _xdiff(cout, cref)}
+    check(bool((cout["status"] == 0).all())
+          and rec["cascade"]["max_gap"] <= 1e-6, f"dryrun cascade: "
+          f"{rec['cascade']}")
+    check(rec["cascade"]["x_vs_unsharded"] <= 1e-12,
+          f"dryrun cascade differs from the unsharded solve: "
+          f"{rec['cascade']}")
+    return rec
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parallel_cascade(mesh, dev, results, x_unsharded, nb=1024, n=256):
+    """The main path's headline batch through the mesh: scenario_qps(1024,
+    256, seed=0) through make_coneqp_cascade('chol2_inv', 1e-7) under
+    sharded_batch_solve, bracketed by the kernels' launch counts; every
+    status 0, x within 1e-12 of the unsharded run (the cascade phase's
+    when it ran, else one made here)."""
+    import torch
+    from cvxopt_tpu_torch.cones import ConeDims
+    from cvxopt_tpu_torch.coneqp import make_coneqp_cascade
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    from cvxopt_tpu_torch.parallel import sharded_batch_solve
+    solve = make_coneqp_cascade(ConeDims(l=2 * n), kktsolver="chol2_inv",
+                                maxiters=50, abstol=1e-7, reltol=1e-7,
+                                feastol=1e-7, instrument=True, device=dev)
+    P, q, G, h, A, b = scenario_qps(nb, n, seed=0, dev=dev)
+    run = lambda P, q: solve(P, q, G, h, A, b)
+    rec = {"instances": nb, "n": n, "world_size": mesh.size,
+           "x_reference": "cascade phase" if x_unsharded is not None
+           else "unsharded run in this phase"}
+    warm = scenario_qps(64, n, seed=1, dev=dev)[:2]
+    if x_unsharded is None:
+        run(*warm)                                # warm-up (handles)
+        x_unsharded = run(P, q)["x"]
+    sharded_batch_solve(run, warm, mesh=mesh)
+    _sync(dev)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sharded_batch_solve(run, (P, q), mesh=mesh)
+    _sync(dev)
+    rec["wall_s"] = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    _on_device(dev, out["x"])
+    iters = int(out["iterations"].sum())
+    rec.update(solved=int((out["status"] == 0).sum()),
+               max_gap=float(out["gap"].max()),
+               max_pres=float(out["pres"].max()),
+               max_dres=float(out["dres"].max()), iterations=iters,
+               ipm_iters_per_s=iters / rec["wall_s"],
+               profile=out["profile"], launches=counts,
+               x_vs_unsharded_max_abs=float((out["x"] - x_unsharded)
+                                            .abs().max()))
+    check(rec["solved"] == nb, f"parallel cascade: {nb - rec['solved']} "
+          f"unsolved")
+    check(max(rec["max_gap"], rec["max_pres"], rec["max_dres"]) <= 1e-7,
+          f"parallel cascade outside the 1e-7 contract: {rec}")
+    check(tuple(out["x"].shape) == (nb, n)
+          and bool(torch.isfinite(out["x"]).all()), "parallel cascade: x")
+    check(rec["x_vs_unsharded_max_abs"] <= 1e-12,
+          f"parallel cascade differs from the unsharded run: "
+          f"{rec['x_vs_unsharded_max_abs']}")
+    for k in ("fused_schur_cholesky_batched", "fused_cholesky_solve_batched"):
+        check(counts[k] > 0, f"the sharded cascade did not launch {k}")
+        if k in results:
+            results[k].setdefault("launches", counts[k])
+            results[k].setdefault("paths", []).append("parallel")
+    return rec
+
+
+def _reduced_matrix(qp, d):
+    """The reduced (n0, n0) matrix of the block kktsolver at W = d I,
+    formed apart from the kktsolver with the library's Cholesky: S0 =
+    P0 + sum_k Es_k'Es_k - V_k' H_k^-1 V_k, H_k = [[D_k, A_k'], [A_k, 0]]
+    and V_k = [U_k; C_k], where V' H^-1 V = U'D^-1 U - R' M^-1 R with
+    M = A D^-1 A' and R = A D^-1 U - C."""
+    import torch
+    T = lambda M: M.transpose(-1, -2)
+    Gs, Es = qp.Gk / d, qp.Ek / d
+    L = torch.linalg.cholesky(qp.Pk + T(Gs) @ Gs)
+    U = qp.Pc + T(Gs) @ Es
+    DiU = torch.cholesky_solve(U, L)
+    DiAt = torch.cholesky_solve(T(qp.Ak), L)
+    R = qp.Ak @ DiU - qp.Ck
+    MiR = torch.cholesky_solve(R, torch.linalg.cholesky(qp.Ak @ DiAt))
+    return qp.P0 + (T(Es) @ Es).sum(0) - (T(U) @ DiU - T(R) @ MiR).sum(0)
+
+
+def parallel_block_qp(mesh, dev, spec=BLOCK_QP):
+    """tests/test_block_kkt.py:90-130 on the card, as the JAX test runs
+    it: the n = 10,240 block QP (BLOCK_QP, the generator's data
+    unchanged), one factor + solve of the mesh kktsolver at W = 1.1 I
+    timed after a warm-up at W = I, bracketed by the kernels' launch
+    counts.  The QP is not convex, so the outputs must be non-finite, as
+    JAX's are; the local factors D_k are positive definite, and the
+    kernel rows at this shape are checked and timed."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    from cvxopt_tpu_torch.parallel.schur import (
+        random_block_qp, make_block_kktsolver)
+    from cvxopt_tpu_torch.scaling import identity_scaling
+    rec = {"spec": dict(spec), "world_size": mesh.size,
+           "W": f"{BLOCK_QP_D} I"}
+    t0 = time.perf_counter()
+    qp = random_block_qp(**spec, device=dev)
+    n, p, m = qp.K * qp.nk + qp.n0, qp.K * qp.pk + qp.p0, qp.dims.cdim
+    rec.update(n=n, m=m, p=p, data_s=time.perf_counter() - t0)
+    # P is positive definite iff its Schur complement on x0 is (the P_k
+    # are); the reduced factor of the kktsolver fails where its matrix
+    # is not
+    X = torch.cholesky_solve(qp.Pc, torch.linalg.cholesky(qp.Pk))
+    S = qp.P0 - torch.einsum("kia,kib->ab", qp.Pc, X)
+    rec["P_schur_min_eig"] = float(torch.linalg.eigvalsh(S)[0])
+    S0 = _reduced_matrix(qp, BLOCK_QP_D)
+    rec["reduced_min_eig"] = float(torch.linalg.eigvalsh(S0)[0])
+    rec["reduced_cholesky_info"] = int(torch.linalg.cholesky_ex(S0).info)
+    kkt = make_block_kktsolver(qp, mesh=mesh)
+    W = identity_scaling(qp.dims, device=dev)
+    ones = lambda k: torch.ones(k, dtype=torch.float64, device=dev)
+
+    def factor_solve(d):
+        return kkt(dict(W, d=W["d"] * d, di=W["di"] / d))(
+            ones(n), 0.0 * ones(p), ones(m))
+
+    factor_solve(1.0)                                 # warm-up
+    _sync(dev)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    u = factor_solve(BLOCK_QP_D)
+    _sync(dev)
+    rec["factor_solve_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["launches"] = fc.launch_counts()
+    rec["solve_kernels"] = fc.solve_kernel_counts()
+    _on_device(dev, *u)
+    check(tuple(v.shape[0] for v in u) == (n, p, m), "block QP: shapes")
+    rec["finite"] = {k: int(torch.isfinite(v).sum())
+                     for k, v in zip(("ux", "uy", "Wuz"), u)}
+    check(rec["P_schur_min_eig"] < 0 and rec["reduced_cholesky_info"] > 0,
+          f"block QP: the data is no longer the JAX test's: {rec}")
+    check(not any(rec["finite"].values()),
+          f"block QP: finite outputs where JAX's are not: {rec['finite']}")
+    return rec, qp
+
+
+def block_factor_inputs(qp, d):
+    """The block kktsolver's local factor as it hands it to the kernels
+    at W = d I on an orthant: P_k padded with an identity to a multiple
+    of 64, Gt = Gs_k' = G_k' / d with zero pad rows, dinv2 = 1."""
+    import torch
+    from cvxopt_tpu_torch.kkt import _pad_to
+    K, nk, mk = qp.K, qp.nk, qp.mk
+    n = _pad_to(nk)
+    kw = dict(dtype=qp.Pk.dtype, device=qp.Pk.device)
+    P = torch.zeros((K, n, n), **kw)
+    P[:, :nk, :nk] = qp.Pk
+    idx = torch.arange(nk, n, device=qp.Pk.device)
+    P[:, idx, idx] = 1.0
+    Gt = torch.zeros((K, n, mk), **kw)
+    Gt[:, :nk] = qp.Gk.transpose(1, 2) / d
+    return P, Gt, torch.ones((K, mk), **kw)
+
+
+def _block_qp_kernel_rows(qp, results, launches, kcounts):
+    """The block QP's local factor and its solves at the full shape, as
+    the mesh kktsolver hands them to the kernels at W = 1.1 I (P_k padded
+    with an identity to n = 1280, Gt = Gs_k' with zero pad rows, dinv2 =
+    1): each against its plain version (1e-12), with kernel, plain and
+    library times; the bound counts the nk = 1248 the data needs."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    f64 = torch.float64
+    K, nk, mk = qp.K, qp.nk, qp.mk
+    P, Gt, d2 = block_factor_inputs(qp, BLOCK_QP_D)
+    n = P.shape[-1]
+    rep = "cvxopt_tpu/ops/pallas_chol.py:"
+    (L, D), ref, err = _check_factor(fc.fused_schur_cholesky, P, Gt, d2,
+                                     "float64", "fused_schur_cholesky "
+                                     "(block_qp)", False)
+    bound, by = _factor_bound(K, nk, mk, False, 8)
+    row = results["fused_schur_cholesky/block_qp"] = dict(
+        name="fused_schur_cholesky", replaces=rep + "129",
+        shape=[K, n, mk], dtype="float64", rel_fro_err=err,
+        max_abs_err=max_abs(L, ref[0]),
+        ms=time_ms(lambda: fc.fused_schur_cholesky(P, Gt, d2), reps=5),
+        plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2),
+                         reps=5),
+        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2), reps=5),
+        bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8],
+        launches=launches["fused_schur_cholesky"], paths=["parallel"])
+    row["assemble_ms"], row["factor_ms"] = schur_split_ms(P, Gt, d2, reps=5)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    few = kcounts["fused_cholesky_solve"]
+    # D^-1 U (nrhs = n0, solve_many) and D^-1 r (nrhs = 1, solve_few;
+    # its count also holds the nrhs = pk = 4 launches for D^-1 A')
+    for key, nrhs, cnt in (("block_qp_nrhs256", qp.n0, few["solve_many"]),
+                           ("block_qp_nrhs1", 1, few["solve_few"])):
+        rhs = torch.randn((K, nrhs, n), dtype=f64, device="cuda",
+                          generator=g)
+        x = fc.fused_cholesky_solve(L, D, rhs)
+        xr = fc.fused_cholesky_solve_ref(L, D, rhs)
+        e = rel_fro(x, xr)
+        check(e <= TOL["float64"], f"fused_cholesky_solve ({key}): {e}")
+        check(cnt > 0, f"the block QP's solve did not launch {key}")
+        bound, by = _solve_bound(K, nk, nrhs, False, 8)
+        results["fused_cholesky_solve/" + key] = dict(
+            name="fused_cholesky_solve", replaces=rep + "194",
+            shape=[K, n, nrhs], dtype="float64", rel_fro_err=e,
+            max_abs_err=max_abs(x, xr),
+            ms=time_ms(lambda: fc.fused_cholesky_solve(L, D, rhs)),
+            plain_ms=time_ms(lambda: fc.fused_cholesky_solve_ref(L, D, rhs)),
+            library_ms=time_ms(lambda: torch.cholesky_solve(
+                rhs.transpose(1, 2), L)),
+            bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8],
+            launches=cnt, paths=["parallel"])
+    for key in ("fused_schur_cholesky/block_qp",
+                "fused_cholesky_solve/block_qp_nrhs256",
+                "fused_cholesky_solve/block_qp_nrhs1"):
+        results[key]["bound_share"] = results[key]["bound_ms"] / \
+            results[key]["ms"]
+
+
+def phase_parallel(log, results, carry):
+    """The parallel layer on the card in an NCCL process group of world
+    size 1 (a file rendezvous in a temporary directory): the collectives
+    against the single-device cone functions; dryrun_multichip's sharded
+    paths against their mesh=None runs; the headline cascade batch
+    through sharded_batch_solve; the n = 10,240 block QP's factor + solve
+    through the mesh kktsolver, with its kernel rows."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from cvxopt_tpu_torch.parallel import make_mesh
+    rec = {"phase": "parallel", "elapsed_s": {}}
+    t_phase = time.perf_counter()
+
+    def mark(part):
+        rec["elapsed_s"][part] = time.perf_counter() - t_phase
+
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmpdir, "rdv"),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        rec.update(backend=str(dist.get_backend()),
+                   world_size=dist.get_world_size())
+        check(rec["backend"] == "nccl", f"backend {rec['backend']}")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(1)
+        check(mesh.device == dev, "the mesh is not on the card")
+        mark("init")
+        rec["collectives_max_err"] = parallel_collectives(
+            make_mesh(1, axis="shards"), dev)
+        mark("collectives")
+        rec["dryrun"] = parallel_dryrun(mesh, make_mesh(1, axis="cone"),
+                                        dev)
+        mark("dryrun")
+        rec["cascade"] = parallel_cascade(mesh, dev, results,
+                                          carry.get("cascade_x"))
+        mark("cascade")
+        rec["block_qp"], qp = parallel_block_qp(mesh, dev)
+        mark("block_qp")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    b = rec["block_qp"]
+    _block_qp_kernel_rows(qp, results, b["launches"], b["solve_kernels"])
+    rec["kernel_rows"] = {k: v for k, v in results.items()
+                          if k.endswith(("/block_qp", "/block_qp_nrhs256",
+                                         "/block_qp_nrhs1"))}
+    mark("kernel_rows")
+    rec["nvidia_smi"] = nvidia_smi()
+    emit(rec, log)
+
 
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1753,13 +2278,18 @@ def main(argv=None):
     if "build" in phases or "kernels" in phases:
         phase_build(log)
     seconds = {}
+    carry = {}          # the cascade phase's x, for the parallel phase
     for name, run in (("kernels", phase_kernels),
-                      ("cascade", phase_cascade), ("entry", phase_entry),
+                      ("cascade", lambda log, res:
+                       phase_cascade(log, res, carry)),
+                      ("entry", phase_entry),
                       ("socp", phase_socp), ("conelp_lp", phase_conelp_lp),
                       ("sdp", phase_sdp), ("cpl", phase_cpl),
                       ("nonlinear_front", phase_nonlinear_front),
                       ("lp_milp", phase_lp_milp),
-                      ("sparse", phase_sparse)):
+                      ("sparse", phase_sparse),
+                      ("parallel", lambda log, res:
+                       phase_parallel(log, res, carry))):
         if name in phases:
             t0 = time.perf_counter()
             run(log, results)

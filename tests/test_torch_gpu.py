@@ -483,3 +483,91 @@ def test_umfpack_and_namespaces_on_card(cuda_device):
                         device=cuda_device)
     for t in (1, 2, 3, 4):
         assert _rel(fft.idct(fft.dct(x, type=t), type=t), x) <= 1e-12
+
+
+# ---- the parallel layer ---------------------------------------------------
+
+@pytest.mark.gpu
+def test_block_qp_local_factor_on_card(cuda_device):
+    """The n = 10,240 block QP's local factor as the block kktsolver hands
+    it to the kernels at W = 1.1 I (K = 8, nk = 1248 padded to 1280, m =
+    1248), and its solves at nrhs 256 (D^-1 U) and 1, against the plain
+    versions, 1e-12 relative."""
+    from chip_smoke import BLOCK_QP, BLOCK_QP_D, block_factor_inputs
+    from cvxopt_tpu_torch.parallel.schur import random_block_qp
+    qp = random_block_qp(**BLOCK_QP, device=cuda_device)
+    P, Gt, d2 = block_factor_inputs(qp, BLOCK_QP_D)
+    L, D = fc.fused_schur_cholesky(P, Gt, d2)
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    assert _rel(L, Lr) <= 1e-12 and _rel(D, Dr) <= 1e-12
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for nrhs in (256, 1):
+        rhs = torch.randn((8, nrhs, P.shape[-1]), dtype=torch.float64,
+                          device=cuda_device, generator=g)
+        assert _rel(fc.fused_cholesky_solve(L, D, rhs),
+                    fc.fused_cholesky_solve_ref(L, D, rhs)) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_nccl_world_size_one_collectives(cuda_device, tmp_path):
+    """An NCCL group of one rank (file rendezvous): every collective on
+    the card against the single-device cone functions (chip_smoke.py's
+    parallel_collectives), and the dryrun's sharded paths against their
+    unsharded runs."""
+    import datetime
+    import torch.distributed as dist
+    from chip_smoke import parallel_collectives, parallel_dryrun
+    from cvxopt_tpu_torch.parallel import make_mesh
+    torch.cuda.set_device(cuda_device if cuda_device.index is not None
+                          else 0)
+    dist.init_process_group(
+        "nccl", init_method="file://" + str(tmp_path / "rdv"),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        assert dist.get_backend() == "nccl"
+        dev = torch.device("cuda", torch.cuda.current_device())
+        errs = parallel_collectives(make_mesh(1, axis="shards"), dev)
+        assert max(errs.values()) <= 1e-12
+        rec = parallel_dryrun(make_mesh(1), make_mesh(1, axis="cone"), dev)
+        assert rec["conesolve"]["status"] == 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_block_kktsolver_on_card_matches_cpu(cuda_device):
+    """A small block QP ('q' cones, local equalities) through coneqp with
+    the block kktsolver on the card against the CPU run: the kernels
+    launched, equal status and iterations, x within 1e-9."""
+    from cvxopt_tpu_torch.coneqp import coneqp
+    from cvxopt_tpu_torch.parallel.schur import (
+        random_block_qp, make_block_kktsolver)
+    kw = dict(K=4, nk=8, n0=4, l=5, q=(3,), pk=2, seed=2)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        qp = random_block_qp(**kw, device=dev)
+        fc.reset_launch_counts()
+        out[str(dev)] = coneqp(
+            qp.flat_P(), qp.flat_q(), qp.flat_G(), qp.flat_h(),
+            dims=qp.dims, A=qp.flat_A(), b=qp.flat_b(),
+            kktsolver=make_block_kktsolver(qp), device=dev)
+        if dev == cuda_device:
+            assert fc.launch_counts()["fused_schur_cholesky"] > 0
+    gpu, cpu = out[str(cuda_device)], out["cpu"]
+    assert gpu["status"] == cpu["status"] == "optimal"
+    assert gpu["iterations"] == cpu["iterations"]
+    assert float((gpu["x"].cpu() - cpu["x"]).abs().max()) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_make_mesh_on_card_needs_a_process_group(cuda_device):
+    """No process group, no mesh: make_mesh raises on the card as on the
+    CPU (there is no one-rank mesh whose collectives do nothing)."""
+    import torch.distributed as dist
+    from cvxopt_tpu_torch.parallel import make_mesh, sharded_batch_solve
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(device=cuda_device)
+    with pytest.raises(RuntimeError, match="process group"):
+        sharded_batch_solve(lambda u: {"x": u},
+                            (torch.ones(2, device=cuda_device),))

@@ -29,6 +29,7 @@ from cvxopt_tpu_torch.ops import _build
 from cvxopt_tpu_torch.ops import sparse_kkt, blocksparse, banded, blas, \
     lapack
 from cvxopt_tpu_torch import cholmod, umfpack
+from cvxopt_tpu_torch.parallel import make_mesh, multihost, schur
 from cvxopt_tpu_torch.utils import fft
 import scipy.sparse as sp
 
@@ -85,11 +86,36 @@ def test_no_jax_imports():
                 os.path.join("ops", "blocksparse.py"),
                 os.path.join("ops", "spsolve.py"),
                 os.path.join("ops", "blas.py"),
-                os.path.join("ops", "lapack.py")):
+                os.path.join("ops", "lapack.py")) + tuple(
+                    os.path.join("parallel", f + ".py")
+                    for f in PARALLEL_MODULES + ("__init__",)):
         assert mod in names
     bad = [(os.path.relpath(p, ROOT), m) for p in srcs
            for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
+
+
+PARALLEL_MODULES = ("mesh", "collectives", "multihost", "schur",
+                    "conesolve")
+
+
+def test_parallel_names_have_twins():
+    """Every public name that a module of cvxopt_tpu.parallel defines has
+    a twin of the same name in cvxopt_tpu_torch.parallel."""
+    import importlib
+    import inspect
+    import cvxopt_tpu.parallel as jpar
+    import cvxopt_tpu_torch.parallel as tpar
+    assert tpar.__all__ == jpar.__all__
+    for mod in PARALLEL_MODULES:
+        jm = importlib.import_module("cvxopt_tpu.parallel." + mod)
+        tm = importlib.import_module("cvxopt_tpu_torch.parallel." + mod)
+        names = [k for k, v in vars(jm).items() if not k.startswith("_")
+                 and (inspect.isfunction(v) or inspect.isclass(v))
+                 and v.__module__ == jm.__name__]
+        assert names, mod
+        missing = [k for k in names if not hasattr(tm, k)]
+        assert not missing, (mod, missing)
 
 
 def test_forbidden_matches_exact_module_names():
@@ -188,6 +214,11 @@ def test_entry_points_raise_without_card(no_card):
         lambda: cvxopt_tpu_torch.spmatrix([1.0], [0], [0]),
         lambda: cvxopt_tpu_torch.normal(2),
         lambda: cvxopt_tpu_torch.uniform(2),
+        lambda: make_mesh(),
+        lambda: multihost.initialize(),
+        lambda: multihost.global_mesh(),
+        lambda: schur.random_arrow_qp(2, 2, 1, 2),
+        lambda: schur.random_block_qp(2, 2, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match='device="cpu"'):

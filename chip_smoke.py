@@ -78,6 +78,24 @@ Phases, each printing one JSON line:
            outputs must be non-finite as the JAX package's are, and its
            local factor and solves (8 x 1280, f64) against their plain
            versions
+  large_kkt  bench.py's large_kkt stage (:746) at n = 10,240, B = 1, in
+           seeded numpy (S = F F' + I + Gt diag(d) Gt', F (n, 256)):
+           panel_factor and panel_solve in f32 and f64 (the f64 factor
+           within 1e-12 of its plain version; the f32 factor, S being
+           conditioned at about 1.4e4, as close to the f64 factor as the
+           plain version is, within twice its distance; the solve within
+           1e-5 / 1e-12 of its plain version on a well-conditioned factor
+           of this shape, and on S with a residual within 10 times the
+           library's); kernel, plain and library times (torch.linalg.
+           cholesky of torch's S, torch.cholesky_solve) in turns, the
+           factor's two launches apart, one run of the one-block layout,
+           a torch.profiler breakdown of one f64 factor and a sweep over n
+           at B = 1 (small-batch against one-block kernels: the data
+           behind fused_chol's n thresholds); then one QP at n = m =
+           10,240 through solvers.qp (chol2, so the kernels at B = 1) held
+           to gap, pres and dres <= 1e-7 and to x of the same QP through
+           kktsolver='chol' within 1e-6, with its iterations, wall and
+           kernel launches
 
 Each solver phase sets the kernels' launch counts to 0 just before its
 timed solve and reads them just after.  Then a line with each phase's
@@ -92,6 +110,7 @@ when no CUDA device is present.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,7 +118,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
           "conelp_lp", "sdp", "cpl", "nonlinear_front", "lp_milp", "sparse",
-          "parallel")
+          "parallel", "large_kkt")
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
@@ -710,6 +729,7 @@ def phase_kernels(log, results):
             plain_ms=time_ms(
                 lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
             library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
+            one_block_ms=one_block_ms(lambda: b1(P, Gt, d2)),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
         r = results["fused_schur_cholesky_batched/" + tag]
         r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
@@ -734,6 +754,7 @@ def phase_kernels(log, results):
                 lambda: fc.fused_cholesky_solve_ref(Ll, Dl, r1)),
             library_ms=time_ms(lambda: torch.cholesky_solve(
                 r1.transpose(1, 2), Ll)),
+            one_block_ms=one_block_ms(lambda: sl(r1)),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
         del P, Gt, d2, Ll, Dl, refl
 
@@ -1199,7 +1220,7 @@ def phase_nonlinear_front(log, results):
 # device-kernel name fragments -> group of a profile's breakdown
 GROUPS = (
     ("hand_written", ("schur_assemble", "schur_factor", "solve_few",
-                      "solve_many")),
+                      "solve_many", "panel_", "trail_update")),
     ("library_qr", ("geqr", "larf", "orgqr", "ormqr", "householder",
                     "geqr2", "larft")),
     ("library_eigh", ("syev", "sytr", "stedc", "steqr", "jacobi", "heev",
@@ -2160,15 +2181,19 @@ def _block_qp_kernel_rows(qp, results, launches, kcounts):
         plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2),
                          reps=5),
         library_ms=time_ms(lambda: _lib_factor(P, Gt, d2), reps=5),
+        one_block_ms=one_block_ms(
+            lambda: fc.fused_schur_cholesky(P, Gt, d2), reps=5),
         bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8],
         launches=launches["fused_schur_cholesky"], paths=["parallel"])
     row["assemble_ms"], row["factor_ms"] = schur_split_ms(P, Gt, d2, reps=5)
     g = torch.Generator(device="cuda").manual_seed(9)
     few = kcounts["fused_cholesky_solve"]
-    # D^-1 U (nrhs = n0, solve_many) and D^-1 r (nrhs = 1, solve_few;
-    # its count also holds the nrhs = pk = 4 launches for D^-1 A')
+    # D^-1 U (nrhs = n0, solve_many) and D^-1 r (nrhs = 1, panel_solve
+    # on an H100; its count also holds the nrhs = pk = 4 launch for
+    # D^-1 A', the same kernel there)
     for key, nrhs, cnt in (("block_qp_nrhs256", qp.n0, few["solve_many"]),
-                           ("block_qp_nrhs1", 1, few["solve_few"])):
+                           ("block_qp_nrhs1", 1,
+                            few[solve_kernel(K, n, 1, 8)])):
         rhs = torch.randn((K, nrhs, n), dtype=f64, device="cuda",
                           generator=g)
         x = fc.fused_cholesky_solve(L, D, rhs)
@@ -2185,6 +2210,9 @@ def _block_qp_kernel_rows(qp, results, launches, kcounts):
             plain_ms=time_ms(lambda: fc.fused_cholesky_solve_ref(L, D, rhs)),
             library_ms=time_ms(lambda: torch.cholesky_solve(
                 rhs.transpose(1, 2), L)),
+            one_block_ms=one_block_ms(
+                lambda: fc.fused_cholesky_solve(L, D, rhs)),
+            kernel=solve_kernel(K, n, nrhs, 8),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8],
             launches=cnt, paths=["parallel"])
     for key in ("fused_schur_cholesky/block_qp",
@@ -2250,6 +2278,350 @@ def phase_parallel(log, results, carry):
     emit(rec, log)
 
 
+# ---- large_kkt: one n = 10,240 KKT system at B = 1 -------------------------
+
+LARGE_KKT_N = 10240
+LARGE_KKT_K = 256         # columns of F: P = F F' + I (bench.py:770)
+# the QP's stopping rule: gap <= abstol (reltol 0), so that gap, pres and
+# dres all end at or below 1e-7
+LARGE_KKT_OPTS = {"abstol": 1e-7, "reltol": 0.0, "feastol": 1e-7}
+
+
+def large_kkt_data(n=LARGE_KKT_N, k=LARGE_KKT_K, seed=0):
+    """bench.py:746-800 (bench_large_kkt) in seeded numpy: F (n, k) ~
+    N(0, 1), Gt (n, n) ~ N(0, 1) / sqrt(n), d ~ U(0.5, 2), so that
+    S = F F' + I + Gt diag(d) Gt' is positive definite by construction;
+    and the QP's q ~ N(0, 1), x0 ~ N(0, 1), s0 ~ U(0.5, 2).  bench.py
+    draws from jax.random: the values differ from its."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((n, k))
+    Gt = rng.standard_normal((n, n)) / np.sqrt(n)
+    d = rng.uniform(0.5, 2.0, n)
+    q = rng.standard_normal(n)
+    x0 = rng.standard_normal(n)
+    s0 = rng.uniform(0.5, 2.0, n)
+    return F, Gt, d, q, x0, s0
+
+
+def _panel_min_n(factor_n, solve_n, fn):
+    """fn() with fused_chol's small-batch n thresholds set as given."""
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    keep = fc.PANEL_FACTOR_MIN_N, fc.PANEL_SOLVE_MIN_N
+    fc.PANEL_FACTOR_MIN_N, fc.PANEL_SOLVE_MIN_N = factor_n, solve_n
+    try:
+        return fn()
+    finally:
+        fc.PANEL_FACTOR_MIN_N, fc.PANEL_SOLVE_MIN_N = keep
+
+
+def one_block(fn):
+    """fn() with the small-batch kernels off: one block per instance (per
+    right-hand side), the layout every batch took before them."""
+    never = 1 << 62
+    return _panel_min_n(never, never, fn)
+
+
+def one_block_ms(fn, **kw):
+    """fn's device ms on one block per instance (`one_block`)."""
+    return one_block(lambda: time_ms(fn, **kw))
+
+
+def solve_kernel(B, n, nrhs, esize):
+    """The solve kernel launch_config picks on this card."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    dev = torch.device("cuda")
+    return fc.launch_config("solve", B, n, nrhs, esize, fc._smem_optin(dev),
+                            fc._sms(dev))[0]["kernel"]
+
+
+def in_turns(fns, rounds=2, **kw):
+    """Device ms of each of `fns` (a dict), timed in turns: every round
+    times each once, in order; returns {name: [ms per round]}."""
+    out = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            out[k].append(time_ms(fn, **kw))
+    return out
+
+
+def unit_lower(n, g, kw):
+    """A well-conditioned unit lower-triangular L (I plus N(0, 1) / n
+    below the diagonal) and its Dinv blocks (tests/test_torch_gpu.py's
+    n = 25,600 solve test uses them too)."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    L = torch.randn((n, n), generator=g, **kw).tril_(-1).div_(n)
+    L.diagonal().add_(1.0)
+    eye = torch.eye(fc.BP, **kw)
+    D = torch.linalg.solve_triangular(fc._diag_blocks(L), eye,
+                                      upper=False).contiguous()
+    return L, D
+
+
+def _large_kkt_rows(F, Gt_np, d_np, dtype, g, fails):
+    """The kernel pair at B = 1, n = 10,240 in one dtype, checked, with
+    kernel, plain and library times in turns, the factor's two launches
+    apart and one timed run of the one-block layout.  Checks (a failed
+    one is appended to `fails`):
+      factor, f64: L and Dinv within 1e-12 relative Frobenius of the
+        plain version's; f32: S's condition number is about 1.4e4, so
+        two f32 factors differ by more than 1e-5 however each sums, and
+        the f32 factor is held to the f64 one as closely as the plain
+        version is, within twice its distance;
+      solve: on a well-conditioned unit lower-triangular L of this shape,
+        within 1e-5 / 1e-12 of the plain version on the same inputs; on
+        the factor of S, a residual |S x - b| / |b| within 10 times the
+        library's (torch.cholesky_solve on torch.linalg.cholesky)."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    name = str(dtype).split(".")[-1]
+    kw = dict(dtype=dtype, device="cuda")
+    Fd = torch.as_tensor(F, **kw)
+    P = Fd @ Fd.T
+    P.diagonal().add_(1.0)
+    del Fd
+    Gt = torch.as_tensor(Gt_np, **kw)
+    d = torch.as_tensor(d_np, **kw)
+    n, m = Gt.shape
+    fac = lambda: fc.fused_schur_cholesky(P, Gt, d)
+    L, D = fac()
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d)
+    err = {"L": rel_fro(L, Lr), "Dinv": rel_fro(D, Dr)}
+    fac_err = max_abs(L, Lr)
+    rec = dict(factor_rel_fro_err=err)
+    if dtype == torch.float32:
+        L64, D64 = fc.fused_schur_cholesky_ref(P.double(), Gt.double(),
+                                               d.double())
+        dist = {"L": (rel_fro(L, L64), rel_fro(Lr, L64)),
+                "Dinv": (rel_fro(D, D64), rel_fro(Dr, D64))}
+        rec["vs_float64"] = {k: {"kernel": a, "plain": p}
+                             for k, (a, p) in dist.items()}
+        del L64, D64
+        if not all(a <= 2 * p for a, p in dist.values()):
+            fails.append(f"panel_factor (large_kkt, float32) farther from "
+                         f"the float64 factor than twice the plain "
+                         f"version: {rec['vs_float64']}")
+    elif not all(e <= TOL[name] for e in err.values()):
+        fails.append(f"panel_factor (large_kkt, {name}) disagrees with "
+                     f"its plain version: {err}")
+    del Lr, Dr
+    # the solve on a well-conditioned factor of this shape
+    Lu, Du = unit_lower(n, g, kw)
+    bu = torch.randn((1, n), generator=g, **kw)
+    xu = fc.fused_cholesky_solve(Lu, Du, bu)
+    xur = fc.fused_cholesky_solve_ref(Lu, Du, bu)
+    rec["solve_rel_fro_err"] = rel_fro(xu, xur)
+    if rec["solve_rel_fro_err"] > TOL[name]:
+        fails.append(f"panel_solve (large_kkt, {name}) disagrees with its "
+                     f"plain version: {rec['solve_rel_fro_err']}")
+    solve_err = max_abs(xu, xur)
+    del Lu, Du
+    # and on the factor of S
+    b = torch.randn((1, n), generator=g, **kw)
+    x = fc.fused_cholesky_solve(L, D, b)
+    xr = fc.fused_cholesky_solve_ref(L, D, b)
+    rec["solve_on_S_rel_fro_err"] = rel_fro(x, xr)
+    S = P + (Gt * d) @ Gt.T
+    Llib = torch.linalg.cholesky(S)
+    xl = torch.cholesky_solve(b.T, Llib).T
+    res = lambda v: float(torch.linalg.vector_norm((S @ v.T).T - b)
+                          / torch.linalg.vector_norm(b))
+    rec.update(residual=res(x), library_residual=res(xl),
+               plain_residual=res(xr))
+    if rec["residual"] > 10 * rec["library_residual"]:
+        fails.append(f"panel_solve (large_kkt, {name}): residual "
+                     f"{rec['residual']} against the library's "
+                     f"{rec['library_residual']}")
+    t = in_turns({
+        "ms": fac,
+        "library_ms": lambda: torch.linalg.cholesky(
+            P + (Gt * d) @ Gt.T),
+        "library_factor_ms": lambda: torch.linalg.cholesky(S),
+        "solve_ms": lambda: fc.fused_cholesky_solve(L, D, b),
+        "solve_library_ms": lambda: torch.cholesky_solve(b.T, Llib)},
+        reps=3, warmup=1)
+    rec.update(t)
+    rec["plain_ms"] = time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d),
+                              reps=2, warmup=1)
+    rec["solve_plain_ms"] = time_ms(
+        lambda: fc.fused_cholesky_solve_ref(L, D, b), reps=3, warmup=1)
+    rec["assemble_ms"], rec["factor_ms"] = schur_split_ms(
+        P[None], Gt, d[None], reps=3, warmup=1)
+    rec["one_block_ms"] = one_block_ms(fac, reps=1, warmup=0)
+    rec["solve_one_block_ms"] = one_block_ms(
+        lambda: fc.fused_cholesky_solve(L, D, b), reps=2, warmup=1)
+    esize = P.element_size()
+    rec["bound_ms"], rec["bound_by"] = _factor_bound(1, n, m, False, esize)
+    rec["factor_only_bound_ms"] = max(
+        n ** 3 / 3.0 / PEAK_F32_FLOPS * 1e3,
+        (n * (n + 1) / 2 + n * n + n * 64) * esize / PEAK_BYTES * 1e3)
+    rec["solve_bound_ms"], rec["solve_bound_by"] = _solve_bound(
+        1, n, 1, False, esize)
+    rec["factor_max_abs_err"] = fac_err
+    rec["solve_max_abs_err"] = solve_err
+    return rec
+
+
+def small_batch_sweep(ns=(128, 192, 256, 384, 512, 1024), dtype=None):
+    """B = 1, f64: the factor and a one-right-hand-side solve at each n
+    on the small-batch kernels (their n thresholds set to one panel for
+    the sweep) and on one block, device ms of each: the data that sets
+    fused_chol.PANEL_FACTOR_MIN_N and PANEL_SOLVE_MIN_N."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    return _panel_min_n(fc.BP, fc.BP, lambda: {
+        n: _sweep_point(n, dtype or torch.float64) for n in ns})
+
+
+def _sweep_point(n, dtype):
+    """One n of `small_batch_sweep`."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    P, Gt, d2 = kernel_data(1, n, n, dtype, False, seed=n)
+    L, D = fc.fused_schur_cholesky_batched(P, Gt, d2, tb=1)
+    b = torch.ones((1, 1, n), dtype=P.dtype, device="cuda")
+    sol = lambda: fc.fused_cholesky_solve_batched(L, D, b, tb=1)
+    return {"factor_ms": schur_split_ms(P, Gt, d2)[1],
+            "factor_one_block_ms": one_block(
+                lambda: schur_split_ms(P, Gt, d2))[1],
+            "solve_ms": time_ms(sol),
+            "solve_one_block_ms": one_block_ms(sol)}
+
+
+def large_kkt_profile(F, Gt_np, d_np):
+    """torch.profiler over one f64 factor call at n = 10,240: device ms and
+    launches of each kernel (the assembly, panel_factor's six)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    kw = dict(dtype=torch.float64, device="cuda")
+    Fd = torch.as_tensor(F, **kw)
+    P = Fd @ Fd.T
+    P.diagonal().add_(1.0)
+    Gt = torch.as_tensor(Gt_np, **kw)
+    d = torch.as_tensor(d_np, **kw)
+    fc.fused_schur_cholesky(P, Gt, d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fc.fused_schur_cholesky(P, Gt, d)
+        torch.cuda.synchronize()
+    out = {}
+    for r in device_rows(prof):
+        m = re.search(r"(\w+_kernel)", r["name"])
+        k = out.setdefault(m.group(1) if m else r["name"][:40],
+                           {"launches": 0, "device_ms": 0.0})
+        k["launches"] += r["count"]
+        k["device_ms"] += r["device_ms"]
+    return out
+
+
+def phase_large_kkt(log, results):
+    """bench.py's large_kkt stage (:746) on the card at n = 10,240, B = 1:
+    the small-batch kernel pair in f32 and f64 against the plain versions
+    and the library; then one QP (P = F F' + I, G = Gt', h = G x0 + s0,
+    m = 10,240) through solvers.qp, which resolves to chol2 and so to the
+    kernels at B = 1, held to gap, pres, dres <= 1e-7 and to x of the same
+    QP through kktsolver='chol' (no hand-written kernel) within 1e-6."""
+    import torch
+    from cvxopt_tpu_torch import solvers
+    from cvxopt_tpu_torch.coneqp import coneqp
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    rec = {"phase": "large_kkt", "n": LARGE_KKT_N, "m": LARGE_KKT_N,
+           "data": "seeded numpy; bench.py draws from jax.random, so the "
+                   "values differ from its"}
+    t0 = time.perf_counter()
+    F, Gt, d, q, x0, s0 = large_kkt_data()
+    rec["data_s"] = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows, fails = {}, []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        rows[name] = _large_kkt_rows(F, Gt, d, dtype, g, fails)
+        torch.cuda.empty_cache()
+    rec["kernel_rows"] = rows
+    rec["small_batch_sweep"] = small_batch_sweep()
+    rec["factor_profile"] = large_kkt_profile(F, Gt, d)
+
+    # one QP end to end, f64, through the front door
+    kw = dict(dtype=torch.float64, device="cuda")
+    Fd = torch.as_tensor(F, **kw)
+    P = Fd @ Fd.T
+    P.diagonal().add_(1.0)
+    del Fd
+    G = torch.as_tensor(Gt, **kw).T.contiguous()
+    qd = torch.as_tensor(q, **kw)
+    h = G @ torch.as_tensor(x0, **kw) + torch.as_tensor(s0, **kw)
+    torch.cuda.synchronize()
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = solvers.qp(P, qd, G, h, options=LARGE_KKT_OPTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    qp = {"status": sol["status"], "iterations": sol["iterations"],
+          "wall_s": wall, "gap": sol["gap"],
+          "relative_gap": sol["relative gap"],
+          "pres": sol["primal infeasibility"],
+          "dres": sol["dual infeasibility"],
+          "primal_objective": sol["primal objective"],
+          "launches": counts, "factor_kernels": fc.factor_kernel_counts(),
+          "solve_kernels": fc.solve_kernel_counts(),
+          "options": LARGE_KKT_OPTS}
+    if sol["status"] != "optimal" or any(
+            v is None or v > 1e-7 for v in (qp["gap"], qp["pres"],
+                                            qp["dres"])):
+        fails.append(f"large_kkt QP: {sol['status']}, gap {qp['gap']} "
+                     f"pres {qp['pres']} dres {qp['dres']}")
+    for k in fc.SMALL_BATCH_KERNELS:
+        if not counts[k]:
+            fails.append(f"large_kkt QP did not launch {k}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = coneqp(P, qd, G, h, kktsolver="chol", options=LARGE_KKT_OPTS)
+    torch.cuda.synchronize()
+    qp["chol_wall_s"] = time.perf_counter() - t0
+    qp["chol_status"] = ref["status"]
+    qp["chol_iterations"] = ref["iterations"]
+    qp["x_vs_chol_max_abs"] = float((sol["x"] - ref["x"]).abs().max())
+    if ref["status"] != "optimal" or not qp["x_vs_chol_max_abs"] <= 1e-6:
+        fails.append(f"large_kkt QP through kktsolver='chol': "
+                     f"{ref['status']}, x differs by "
+                     f"{qp['x_vs_chol_max_abs']}")
+    rec["qp"] = qp
+    del P, G, h, sol, ref
+    torch.cuda.empty_cache()
+
+    rep = "cvxopt_tpu/ops/pallas_chol.py:"
+    for key, kname, line, pre in (("panel_factor/large_kkt", "panel_factor",
+                                   "129", ""),
+                                  ("panel_solve/large_kkt", "panel_solve",
+                                   "194", "solve_")):
+        r64, r32 = rows["float64"], rows["float32"]
+
+        def pick(r):
+            return dict(ms=min(r[pre + "ms"]), plain_ms=r[pre + "plain_ms"],
+                        library_ms=min(r[pre + "library_ms"]),
+                        bound_ms=r[pre + "bound_ms"],
+                        bound_by=r[pre + "bound_by"],
+                        one_block_ms=r[pre + "one_block_ms"],
+                        max_abs_err=r[("solve_" if pre else "factor_")
+                                      + "max_abs_err"])
+        row = dict(name=kname, replaces=rep + line, dtype="float64",
+                   shape=[1, LARGE_KKT_N, LARGE_KKT_N if not pre else 1],
+                   launches=counts[kname], paths=["large_kkt"],
+                   flop_rate=FLOP_RATE[8], **pick(r64))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["float32"] = pick(r32)
+        results[key] = row
+    rec["nvidia_smi"] = nvidia_smi()
+    rec["failed_checks"] = fails
+    emit(rec, log)
+    check(not fails, f"large_kkt: {fails}")
+
+
 KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "bound_share", "shape", "paths")
@@ -2289,7 +2661,8 @@ def main(argv=None):
                       ("lp_milp", phase_lp_milp),
                       ("sparse", phase_sparse),
                       ("parallel", lambda log, res:
-                       phase_parallel(log, res, carry))):
+                       phase_parallel(log, res, carry)),
+                      ("large_kkt", phase_large_kkt)):
         if name in phases:
             t0 = time.perf_counter()
             run(log, results)

@@ -6,7 +6,9 @@
 //   chol_solve  <- fused_cholesky_solve (:194) and
 //                  fused_cholesky_solve_batched (:404)
 //
-// schur_chol is two launches:
+// schur_chol is two launches (for a batch much smaller than the SM count
+// the second is panel_factor's loop instead, and the solve panel_solve:
+// see "the small-batch path" below):
 //   schur_assemble  S = P + Gt diag(dinv2) Gt', S's lower 128x128 tiles,
 //                   one block per (instance, tile), written into L
 //   schur_factor    one block per instance:
@@ -107,6 +109,12 @@ template <> __device__ __forceinline__ double dsqrt<double>(double x) { return s
 template <typename T> __device__ __forceinline__ T drsqrt(T x);
 template <> __device__ __forceinline__ float drsqrt<float>(float x) { return rsqrtf(x); }
 template <> __device__ __forceinline__ double drsqrt<double>(double x) { return rsqrt(x); }
+
+// deq_i = 1/sqrt(max(S_ii, 1e-30)); NaN stays NaN
+template <typename T>
+__device__ __forceinline__ T deq_of(T s) {
+  return T(1) / dsqrt((s != s) ? s : (s > T(1e-30) ? s : T(1e-30)));
+}
 
 template <typename T> __device__ __forceinline__ T qnan();
 template <> __device__ __forceinline__ float qnan<float>() { return __int_as_float(0x7fc00000); }
@@ -404,12 +412,123 @@ __device__ __forceinline__ void inv_level(const T* sL, T* sLi, T* sX) {
   __syncthreads();
 }
 
+// Factor the 64x64 diagonal block at Ld (leading dimension n) in shared
+// memory, as schur_factor's panel step: L11 into Ld with its strict upper
+// triangle zero, inv(L11) into Dj and left in sLi.  Returns true, and
+// writes nothing, when a pivot is <= 0 or not finite (sbad is set and
+// read after a barrier, so the return is uniform over the block).
+template <typename T>
+__device__ __forceinline__ bool diag_panel(T* Ld, int n, T* Dj, T* sL,
+                                           T* sLi, T* sX, T* sRd,
+                                           int& sbad) {
+  constexpr int P = TPITCH<T>, W = VW<T>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int idx = tid; idx < BP * BP; idx += NT)
+    sL[idx / BP * P + idx % BP] = Ld[(long long)(idx / BP) * n + idx % BP];
+  __syncthreads();
+
+  // ---- Cholesky of the diagonal block by 16-column sub-panels q
+  for (int q = 0; q < BP; q += 16) {
+    // (a) the sub-panel's columns minus the sub-panels to their left
+    if (q > 0) {
+      for (int e = tid; e < (BP - q) * 16; e += NT) {
+        const int i = q + e / 16, c = q + e % 16;
+        if (i < c) continue;
+        T s = T(0);
+        for (int k = 0; k < q; k += W) {
+          T u[W], v[W];
+          ld16(sL + i * P + k, u);
+          ld16(sL + c * P + k, v);
+#pragma unroll
+          for (int w = 0; w < W; ++w) s += u[w] * v[w];
+        }
+        sL[i * P + c] -= s;
+      }
+      __syncthreads();
+    }
+    // (b) its 16x16 diagonal block in warp 0, lane i holding row i; the
+    // pivot and the columns travel by shuffle
+    if (warp == 0) {
+      const int i = lane % 16;
+      T d[16], rd = T(0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) d[j] = j <= i ? sL[(q + i) * P + q + j] : T(0);
+      bool badp = false;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const T akk = __shfl_sync(0xffffffffu, d[k], k);
+        badp |= !(akk > T(0)) || isinf(akk);
+        const T inv = drsqrt(akk);
+        if (i == k) { d[k] = akk * inv; rd = inv; }
+        else if (i > k) d[k] *= inv;
+#pragma unroll
+        for (int j = k + 1; j < 16; ++j) {
+          const T ljk = __shfl_sync(0xffffffffu, d[k], j);
+          if (i >= j) d[j] -= d[k] * ljk;
+        }
+      }
+      if (lane < 16) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) sL[(q + i) * P + q + j] = j <= i ? d[j] : T(0);
+        sRd[q + i] = rd;
+      }
+      if (lane == 0 && badp) sbad = 1;
+    }
+    __syncthreads();
+    // (c) the rows below it: x D' = a by forward substitution
+    for (int i = q + 16 + tid; i < BP; i += NT) {
+      T x[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        T s = sL[i * P + q + k];
+#pragma unroll
+        for (int j = 0; j < k; ++j) s -= x[j] * sL[(q + k) * P + q + j];
+        x[k] = s * sRd[q + k];
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) sL[i * P + q + k] = x[k];
+    }
+    __syncthreads();
+  }
+  if (sbad) return true;                 // uniform: read after a barrier
+  for (int idx = tid; idx < BP * P; idx += NT) {
+    sLi[idx] = T(0);
+    if (idx % P > idx / P) sL[idx] = T(0);   // strictly upper (and pad)
+  }
+  __syncthreads();
+
+  // ---- inv(L11) by blocked 2x2 recursion: 8x8 diagonal blocks, then
+  // X21 = -C^-1 (B A^-1) for h = 8, 16, 32 (A^-1, C^-1 already in sLi)
+  if (tid < BP) {
+    const int base = (tid / 8) * 8, c = tid % 8;
+    T x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      T s = (i == c) ? T(1) : T(0);
+#pragma unroll
+      for (int j = 0; j < i; ++j) s -= sL[(base + i) * P + base + j] * x[j];
+      x[i] = i < c ? T(0) : s * sRd[base + i];
+      sLi[(base + i) * P + base + c] = x[i];
+    }
+  }
+  __syncthreads();
+  inv_level<8>(sL, sLi, sX);
+  inv_level<16>(sL, sLi, sX);
+  inv_level<32>(sL, sLi, sX);
+  for (int idx = tid; idx < BP * BP; idx += NT) {
+    const int r = idx / BP, c = idx % BP;
+    Ld[(long long)r * n + c] = sL[r * P + c];
+    Dj[idx] = sLi[r * P + c];
+  }
+  return false;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
 schur_factor_kernel(T* __restrict__ L, T* __restrict__ Dinv,
                     T* __restrict__ deq, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int P = TPITCH<T>, W = VW<T>;
+  constexpr int P = TPITCH<T>;
   T* sL = reinterpret_cast<T*>(smem_raw);   // L11, then the L21[J] operand
   T* sLi = sL + BP * P;                     // inv(L11)
   T* sX = sLi + BP * P;                     // A21 -> L21[I]; inverse scratch
@@ -424,11 +543,7 @@ schur_factor_kernel(T* __restrict__ L, T* __restrict__ Dinv,
 
   // ---- equilibration: deq_i = 1/sqrt(max(S_ii, 1e-30)), NaN stays NaN
   if (dq) {
-    for (int i = tid; i < n; i += NT) {
-      const T s = Lb[(long long)i * n + i];
-      const T f = (s != s) ? s : (s > T(1e-30) ? s : T(1e-30));
-      dq[i] = T(1) / dsqrt(f);
-    }
+    for (int i = tid; i < n; i += NT) dq[i] = deq_of(Lb[(long long)i * n + i]);
     __syncthreads();
     for (int I = 0; I < npan; ++I)
       for (int J = 0; J <= I; ++J)
@@ -443,107 +558,12 @@ schur_factor_kernel(T* __restrict__ L, T* __restrict__ Dinv,
   __shared__ int sbad;
   if (tid == 0) sbad = 0;
   bool bad = false;
-  const int warp = tid / 32, lane = tid % 32;
   for (int jp = 0; jp < npan; ++jp) {
     const int o = jp * BP;
-    T* Ld = Lb + (long long)o * n + o;
-    for (int idx = tid; idx < BP * BP; idx += NT)
-      sL[idx / BP * P + idx % BP] = Ld[(long long)(idx / BP) * n + idx % BP];
-    __syncthreads();
-
-    // ---- Cholesky of the diagonal block by 16-column sub-panels q
-    for (int q = 0; q < BP; q += 16) {
-      // (a) the sub-panel's columns minus the sub-panels to their left
-      if (q > 0) {
-        for (int e = tid; e < (BP - q) * 16; e += NT) {
-          const int i = q + e / 16, c = q + e % 16;
-          if (i < c) continue;
-          T s = T(0);
-          for (int k = 0; k < q; k += W) {
-            T u[W], v[W];
-            ld16(sL + i * P + k, u);
-            ld16(sL + c * P + k, v);
-#pragma unroll
-            for (int w = 0; w < W; ++w) s += u[w] * v[w];
-          }
-          sL[i * P + c] -= s;
-        }
-        __syncthreads();
-      }
-      // (b) its 16x16 diagonal block in warp 0, lane i holding row i; the
-      // pivot and the columns travel by shuffle
-      if (warp == 0) {
-        const int i = lane % 16;
-        T d[16], rd = T(0);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) d[j] = j <= i ? sL[(q + i) * P + q + j] : T(0);
-        bool badp = false;
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const T akk = __shfl_sync(0xffffffffu, d[k], k);
-          badp |= !(akk > T(0)) || isinf(akk);
-          const T inv = drsqrt(akk);
-          if (i == k) { d[k] = akk * inv; rd = inv; }
-          else if (i > k) d[k] *= inv;
-#pragma unroll
-          for (int j = k + 1; j < 16; ++j) {
-            const T ljk = __shfl_sync(0xffffffffu, d[k], j);
-            if (i >= j) d[j] -= d[k] * ljk;
-          }
-        }
-        if (lane < 16) {
-#pragma unroll
-          for (int j = 0; j < 16; ++j) sL[(q + i) * P + q + j] = j <= i ? d[j] : T(0);
-          sRd[q + i] = rd;
-        }
-        if (lane == 0 && badp) sbad = 1;
-      }
-      __syncthreads();
-      // (c) the rows below it: x D' = a by forward substitution
-      for (int i = q + 16 + tid; i < BP; i += NT) {
-        T x[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          T s = sL[i * P + q + k];
-#pragma unroll
-          for (int j = 0; j < k; ++j) s -= x[j] * sL[(q + k) * P + q + j];
-          x[k] = s * sRd[q + k];
-        }
-#pragma unroll
-        for (int k = 0; k < 16; ++k) sL[i * P + q + k] = x[k];
-      }
-      __syncthreads();
-    }
-    if (sbad) { bad = true; break; }       // uniform: read after a barrier
-    for (int idx = tid; idx < BP * P; idx += NT) {
-      sLi[idx] = T(0);
-      if (idx % P > idx / P) sL[idx] = T(0);   // strictly upper (and pad)
-    }
-    __syncthreads();
-
-    // ---- inv(L11) by blocked 2x2 recursion: 8x8 diagonal blocks, then
-    // X21 = -C^-1 (B A^-1) for h = 8, 16, 32 (A^-1, C^-1 already in sLi)
-    if (tid < BP) {
-      const int base = (tid / 8) * 8, c = tid % 8;
-      T x[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        T s = (i == c) ? T(1) : T(0);
-#pragma unroll
-        for (int j = 0; j < i; ++j) s -= sL[(base + i) * P + base + j] * x[j];
-        x[i] = i < c ? T(0) : s * sRd[base + i];
-        sLi[(base + i) * P + base + c] = x[i];
-      }
-    }
-    __syncthreads();
-    inv_level<8>(sL, sLi, sX);
-    inv_level<16>(sL, sLi, sX);
-    inv_level<32>(sL, sLi, sX);
-    T* Dj = Db + (long long)jp * BP * BP;
-    for (int idx = tid; idx < BP * BP; idx += NT) {
-      const int r = idx / BP, c = idx % BP;
-      Ld[(long long)r * n + c] = sL[r * P + c];
-      Dj[idx] = sLi[r * P + c];
+    if (diag_panel(Lb + (long long)o * n + o, n, Db + (long long)jp * BP * BP,
+                   sL, sLi, sX, sRd, sbad)) {
+      bad = true;
+      break;
     }
 
     // ---- L21[I] = A21[I] inv(L11)', then S[I, J] -= L21[I] L21[J]'
@@ -847,6 +867,511 @@ solve_few_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
   }
 }
 
+// ---- the small-batch path: many blocks per instance -------------------
+//
+// panel_factor and panel_solve replace the same TPU kernels as
+// schur_factor and solve_few (pallas_chol.py:129/:338 and :194/:404)
+// where the batch is small.  schur_factor and solve_few run one block per
+// instance (per right-hand side), so a batch smaller than the SM count
+// leaves most SMs idle: one factor at n = 10,240 ran its n/64-panel loop
+// on one of 132 SMs.  Here the same factor and solve are spread over the
+// grid.  No kernel waits on another block through a grid barrier: that
+// would need every block resident at once, and a wrong guess hangs the
+// card.
+//
+// panel_factor (the launcher loops over the panels on the host; each
+// step is one launch, so no block ever waits for another):
+//   [panel_deq, panel_scale]  equilibration, as in schur_factor
+//   per outer panel of NB = 256 columns, per 64-column panel jp in it:
+//     panel_diag    one block per instance: the diagonal block's factor
+//                   and inverse (diag_panel); a bad pivot sets the
+//                   instance's flag in device memory, which every later
+//                   launch reads and which skips the instance
+//     panel_l21     one block per (instance, 64-row tile below):
+//                   L21 = A21 inv(L11)'
+//     panel_update  one block per (instance, row tile, column tile left
+//                   in the outer panel): S[I, J] -= L21[I] L21[J]'
+//   trail_update    one block per (instance, 128x128 lower tile of the
+//                   trailing matrix): S -= L[:, panel] L[:, panel]', a
+//                   rank-256 update
+//   panel_finalize  one block per (instance, 64-row panel): zero the
+//                   strictly upper tiles, or NaN the whole instance
+// What bounds it: the trailing updates hold n^3/3 of the FLOPs.  Rank-64
+// updates would re-read and re-write the trailing matrix n/64 times
+// (about 45 GB at n = 10,240 in f64, more time than its FMAs); rank-256
+// updates do it n/256 times, and the 64-wide steps touch only the current
+// 256-wide panel.  trail_update stages 128x16 k-chunks of both operands
+// k-major in shared memory (registers to shared memory, double-buffered),
+// brings its 128x128 tile of S in by cp.async behind the products, and
+// runs 8x8 FP32 FMA micro-tiles in f32 (no TF32: the interior-point
+// method diverges on it) and DMMA (mma.sync m16n8k4 f64, IEEE double:
+// two m8n8k4 tiles that share B in one instruction, which ran faster than
+// m8n8k4 here) in f64, each warp a 32x64 piece of the tile.  The chain of n/64
+// diagonal factors, one block each, sets the latency that is left.
+//
+// panel_solve: one block per (instance, right-hand side, 64-row panel,
+// sweep), in one launch.  Each block takes a ticket from a counter in
+// device memory and maps it to its work, panel order first, so a block
+// only ever waits for blocks with lower tickets, which have started:
+// there is no deadlock, whatever order the hardware starts blocks in.
+// The forward block of panel j sums L[j, k] y_k over k < j as the chain
+// publishes y_k (a per-chain counter, written after a fence), then
+// y_j = Dinv[j] (b_j - sum); the backward blocks run the same chain from
+// the last panel with the transposed tiles.  L's tiles are read once per
+// sweep by the many blocks at once (the bound is L's bytes); the chain of
+// 2 n/64 Dinv products, each behind a fence and a counter, sets the
+// latency.
+
+constexpr int NB = 256;      // outer panel: rank of the trailing updates
+constexpr int TT = 128;      // trail_update output tile
+constexpr int TKC = 16;      // trail_update k-chunk
+constexpr int TP = TT + 4;   // trail_update k-major row pitch
+template <typename T> constexpr int SMEM_PTILE = 2 * BP * TPITCH<T> * sizeof(T);
+template <typename T> constexpr int TCP = TT + (sizeof(T) == 8 ? 8 : 4);  // C pitch
+template <typename T> constexpr int SMEM_TRAIL =
+    (2 * 2 * TKC * TP + TT * TCP<T>) * sizeof(T);
+template <typename T> constexpr int SMEM_PSOLVE = 2 * BP * sizeof(T);
+
+// deq = 1/sqrt(max(diag S, 1e-30)), NaN stays NaN; NT rows per block.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_deq_kernel(const T* __restrict__ L, T* __restrict__ deq, int n,
+                 int nblk) {
+  const long long b = blockIdx.x / nblk;
+  const int i = (blockIdx.x % nblk) * NT + threadIdx.x;
+  if (i < n) deq[b * n + i] = deq_of(L[b * (long long)n * n + (long long)i * n + i]);
+}
+
+// S := D S D on one lower 64x64 tile per block.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_scale_kernel(T* __restrict__ L, const T* __restrict__ deq, int n,
+                   int ntile) {
+  const long long b = blockIdx.x / ntile;
+  int I, J;
+  tri_tile(blockIdx.x % ntile, I, J);
+  T* Lb = L + b * (long long)n * n;
+  const T* dq = deq + b * n;
+  for (int idx = threadIdx.x; idx < BP * BP; idx += NT) {
+    const int r = I * BP + idx / BP, c = J * BP + idx % BP;
+    T* p = Lb + (long long)r * n + c;
+    *p = *p * dq[r] * dq[c];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
+panel_diag_kernel(T* __restrict__ L, T* __restrict__ Dinv,
+                  int* __restrict__ bad, int n, int jp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = TPITCH<T>;
+  T* sL = reinterpret_cast<T*>(smem_raw);
+  T* sLi = sL + BP * P;
+  T* sX = sLi + BP * P;
+  T* sRd = sX + BP * P;
+  __shared__ int sbad;
+  const long long b = blockIdx.x;
+  if (bad[b]) return;
+  if (threadIdx.x == 0) sbad = 0;
+  const int o = jp * BP;
+  T* Lb = L + b * (long long)n * n;
+  T* Dj = Dinv + (b * (n / BP) + jp) * (long long)(BP * BP);
+  if (diag_panel(Lb + (long long)o * n + o, n, Dj, sL, sLi, sX, sRd, sbad) &&
+      threadIdx.x == 0)
+    bad[b] = 1;
+}
+
+// L21[I] = A21[I] Dinv[jp]' for the row tiles I = jp + 1 .. below.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_l21_kernel(T* __restrict__ L, const T* __restrict__ Dinv,
+                 const int* __restrict__ bad, int n, int jp, int rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = TPITCH<T>;
+  T* sA = reinterpret_cast<T*>(smem_raw);
+  T* sD = sA + BP * P;
+  const long long b = blockIdx.x / rows;
+  if (bad[b]) return;
+  const int I = jp + 1 + blockIdx.x % rows, o = jp * BP;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  T* aI = L + b * (long long)n * n + (long long)(I * BP) * n + o;
+  stage(sA, P, aI, n, BP, BP, BP, BP, true);
+  stage(sD, P, Dinv + (b * (n / BP) + jp) * (long long)(BP * BP), BP, BP,
+        BP, BP, BP, true);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  T acc[4][4] = {};
+  tile_abt(sA, sD, tr, tc, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      aI[(long long)(tr + 16 * i) * n + tc + 16 * j] = acc[i][j];
+}
+
+// S[I, J] -= L21[I] L21[J]' for row tiles I > jp and the `cols` column
+// tiles J = jp + 1 .. left in the outer panel (J <= I).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_update_kernel(T* __restrict__ L, const int* __restrict__ bad, int n,
+                    int jp, int rows, int cols) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P = TPITCH<T>;
+  T* sI = reinterpret_cast<T*>(smem_raw);
+  T* sJ = sI + BP * P;
+  const long long b = blockIdx.x / (rows * cols);
+  const int idx = blockIdx.x % (rows * cols);
+  const int I = jp + 1 + idx / cols, J = jp + 1 + idx % cols, o = jp * BP;
+  if (J > I || bad[b]) return;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  T* Lb = L + b * (long long)n * n;
+  stage(sI, P, Lb + (long long)(I * BP) * n + o, n, BP, BP, BP, BP, true);
+  stage(sJ, P, Lb + (long long)(J * BP) * n + o, n, BP, BP, BP, BP, true);
+  cp_commit();
+  T* sij = Lb + (long long)(I * BP) * n + J * BP;
+  T up[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      up[i][j] = -sij[(long long)(tr + 16 * i) * n + tc + 16 * j];
+  cp_wait<0>();
+  __syncthreads();
+  tile_abt(sI, sJ, tr, tc, up);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sij[(long long)(tr + 16 * i) * n + tc + 16 * j] = -up[i][j];
+}
+
+// One m16n8k4 DMMA (f64, IEEE double): {c0, c1, c2, c3} += A B for a
+// 16x4 A, a 4x8 B and a 16x8 C.  Lane l, g = l / 4, t = l % 4, holds
+// A[g][t] (a0) and A[g + 8][t] (a1), B[t][g] (b), C[g][2t + {0, 1}] (c0,
+// c1) and C[g + 8][2t + {0, 1}] (c2, c3).
+__device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2,
+                                       double& c3, double a0, double a1,
+                                       double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+
+// S[r0.., c0..] -= L[r0.., k0:k0+kw] L[c0.., k0:k0+kw]' on one 128x128
+// lower tile of the trailing matrix, which starts at row and column t0.
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 2 : 1)
+trail_update_kernel(T* __restrict__ L, const int* __restrict__ bad, int n,
+                    int k0, int kw, int t0, int ntile) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);   // 2 stages x {A, B} x TKC x TP
+  T* sC = sm + 2 * 2 * TKC * TP;            // the C tile, pitch TCP
+  constexpr int PC = TCP<T>;
+  const long long b = blockIdx.x / ntile;
+  if (bad[b]) return;
+  int I, J;
+  tri_tile(blockIdx.x % ntile, I, J);
+  const int r0 = t0 + I * TT, c0 = t0 + J * TT;
+  const bool diag = I == J;
+  T* Lb = L + b * (long long)n * n;
+  const int tid = threadIdx.x;
+  // the C tile comes in by cp.async while the products run
+  stage(sC, PC, Lb + (long long)r0 * n + c0, n, TT, TT, min(TT, n - r0),
+        min(TT, n - c0), true);
+  cp_commit();
+
+  // staging: thread t moves row t % 128, k (t / 128) * 8 .. + 8 of a chunk
+  // of each operand through registers into k-major shared memory
+  const int sr = tid % TT, sk = (tid / TT) * 8;
+  const bool okA = r0 + sr < n, okB = c0 + sr < n;
+  const T* gA = Lb + (long long)(okA ? r0 + sr : 0) * n + k0 + sk;
+  const T* gB = Lb + (long long)(okB ? c0 + sr : 0) * n + k0 + sk;
+  T ra[8], rb[8];
+  auto load = [&](int c) {
+#pragma unroll
+    for (int v = 0; v < 8; v += VW<T>) {
+      ld16(gA + c * TKC + v, ra + v);
+      ld16(gB + c * TKC + v, rb + v);
+    }
+    if (!okA)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) ra[q] = T(0);
+    if (!okB)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) rb[q] = T(0);
+  };
+  auto store = [&](int s) {
+    T* a = sm + 2 * s * TKC * TP;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      a[(sk + q) * TP + sr] = ra[q];
+      a[TKC * TP + (sk + q) * TP + sr] = rb[q];
+    }
+  };
+  const int nch = kw / TKC;
+
+  if constexpr (sizeof(T) == 8) {
+    // warp w: rows 32 (w / 2) .., columns 64 (w % 2) .. of the tile, as
+    // 2 x 8 DMMA tiles of 16x8
+    const int warp = tid / 32, lane = tid % 32;
+    const int wr = (warp / 2) * 32, wc = (warp % 2) * 64;
+    const int fr = lane / 4, fk = lane % 4;
+    double acc[4][8][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+    load(0);
+    store(0);
+    __syncthreads();
+    for (int c = 0; c < nch; ++c) {
+      if (c + 1 < nch) load(c + 1);
+      const double* a = sm + 2 * (c & 1) * TKC * TP;
+      const double* bb = a + TKC * TP;
+#pragma unroll
+      for (int ks = 0; ks < TKC; ks += 4) {
+        double av[4], bv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = a[(ks + fk) * TP + wr + i * 8 + fr];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bv[j] = bb[(ks + fk) * TP + wc + j * 8 + fr];
+#pragma unroll
+        for (int i = 0; i < 4; i += 2)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            dmma16(acc[i][j][0], acc[i][j][1], acc[i + 1][j][0],
+                   acc[i + 1][j][1], av[i], av[i + 1], bv[j]);
+      }
+      if (c + 1 < nch) store((c + 1) & 1);
+      __syncthreads();
+    }
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = wr + i * 8 + fr, row = r0 + rl;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = wc + j * 8 + fk * 2, col = c0 + cl;
+        if (col >= n || (diag && row < col)) continue;
+        const double* cs = sC + rl * PC + cl;
+        double* p = Lb + (long long)row * n + col;
+        if (!diag || row > col)
+          *reinterpret_cast<double2*>(p) =
+              make_double2(cs[0] - acc[i][j][0], cs[1] - acc[i][j][1]);
+        else
+          p[0] = cs[0] - acc[i][j][0];
+      }
+    }
+  } else {
+    // thread (tr, tc): rows and columns tr*4 + i and 64 + tr*4 + i, i < 4
+    const int tr = tid / 16, tc = tid % 16;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    load(0);
+    store(0);
+    __syncthreads();
+    for (int c = 0; c < nch; ++c) {
+      if (c + 1 < nch) load(c + 1);
+      const float* a = sm + 2 * (c & 1) * TKC * TP;
+      const float* bb = a + TKC * TP;
+#pragma unroll
+      for (int k = 0; k < TKC; ++k) {
+        float av[8], bv[8];
+        ld4(a + k * TP + tr * 4, av);
+        ld4(a + k * TP + 64 + tr * 4, av + 4);
+        ld4(bb + k * TP + tc * 4, bv);
+        ld4(bb + k * TP + 64 + tc * 4, bv + 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
+      }
+      if (c + 1 < nch) store((c + 1) & 1);
+      __syncthreads();
+    }
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rl = (i < 4 ? 0 : 64) + tr * 4 + i % 4, row = r0 + rl;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = (j < 4 ? 0 : 64) + tc * 4 + j % 4, col = c0 + cl;
+        if (col >= n || (diag && row < col)) continue;
+        Lb[(long long)row * n + col] = sC[rl * PC + cl] - acc[i][j];
+      }
+    }
+  }
+}
+
+// Row panel I of each instance: zero its strictly upper tiles, or, for an
+// instance with a bad pivot, NaN in all of its L rows and Dinv[I].
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_finalize_kernel(T* __restrict__ L, T* __restrict__ Dinv,
+                      const int* __restrict__ bad, int n) {
+  constexpr int W = VW<T>;
+  using V16 = typename Vec<T>::type;
+  const int npan = n / BP;
+  const long long b = blockIdx.x / npan;
+  const int I = blockIdx.x % npan;
+  T* rows = L + b * (long long)n * n + (long long)(I * BP) * n;
+  V16 fill;
+  T* f = reinterpret_cast<T*>(&fill);
+  const bool nan = bad[b] != 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) f[w] = nan ? qnan<T>() : T(0);
+  const int c0 = nan ? 0 : (I + 1) * BP, wv = (n - c0) / W;
+  for (int idx = threadIdx.x; idx < BP * wv; idx += NT)
+    *reinterpret_cast<V16*>(rows + (long long)(idx / wv) * n + c0 +
+                            (idx % wv) * W) = fill;
+  if (nan) {
+    T* Dj = Dinv + (b * npan + I) * (long long)(BP * BP);
+    for (int idx = threadIdx.x; idx < BP * BP / W; idx += NT)
+      reinterpret_cast<V16*>(Dj)[idx] = fill;
+  }
+}
+
+// Wait until the counter at c reaches `need`; returns the value seen.
+// Thread 0 spins, then a fence orders the block's later reads after it.
+__device__ __forceinline__ int wait_count(const int* c, int need, int* s) {
+  if (threadIdx.x == 0) {
+    int v;
+    while ((v = *reinterpret_cast<const volatile int*>(c)) < need) {
+    }
+    __threadfence();
+    *s = v;
+  }
+  __syncthreads();
+  const int v = *s;
+  __syncthreads();
+  return v;
+}
+
+// 16 consecutive elements at p (16-byte aligned), through L2 only.
+template <typename T>
+__device__ __forceinline__ void ld16_cg(const T* p, T* v) {
+  using V16 = typename Vec<T>::type;
+#pragma unroll
+  for (int q = 0; q < 16; q += VW<T>) {
+    const V16 x = __ldcg(reinterpret_cast<const V16*>(p + q));
+    const T* e = reinterpret_cast<const T*>(&x);
+#pragma unroll
+    for (int w = 0; w < VW<T>; ++w) v[q + w] = e[w];
+  }
+}
+
+// sync: [0] the ticket counter, then per chain (instance, right-hand
+// side) the forward and the backward panels done; zero at launch.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+panel_solve_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
+                   const T* __restrict__ Bm, long long b_bs, T* X, int n,
+                   int nrhs, int chains, int* sync) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sv = reinterpret_cast<T*>(smem_raw);   // 64: the panel's right side
+  __shared__ int s_ticket, s_seen;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_ticket = atomicAdd(sync, 1);
+  __syncthreads();
+  const int ticket = s_ticket;
+  const int chain = ticket % chains, pos = ticket / chains;
+  const long long b = chain / nrhs;
+  const int row = chain % nrhs, npan = n / BP;
+  const T* Lb = L + b * (long long)n * n;
+  const T* Db = Dinv + b * (long long)npan * BP * BP;
+  const T* bv = Bm + b * b_bs + (long long)row * n;
+  T* x = X + (b * nrhs + row) * (long long)n;
+  int* done = sync + 1 + 2 * chain;   // forward, backward panels done
+  const int rc = tid / 4, seg = (tid % 4) * 16;
+  T s = T(0), lt[16], cur[16], xv[16], dv[16];
+
+  if (pos < npan) {
+    // forward: thread (rc, seg) holds row rc, columns seg .. seg + 15 of
+    // each tile L[j, k] and of Dinv[j]
+    const int j = pos, o = j * BP;
+    const T* Lr = Lb + (long long)(o + rc) * n + seg;
+#pragma unroll
+    for (int q = 0; q < 16; q += 4)
+      ld4(Db + (long long)j * BP * BP + rc * BP + seg + q, dv + q);
+    if (j > 0)
+#pragma unroll
+      for (int q = 0; q < 16; q += 4) ld4(Lr + q, lt + q);
+    int seen = 0;
+    for (int k = 0; k < j; ++k) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) cur[q] = lt[q];
+      if (k + 1 < j)
+#pragma unroll
+        for (int q = 0; q < 16; q += 4) ld4(Lr + (k + 1) * BP + q, lt + q);
+      if (k >= seen) seen = wait_count(done, k + 1, &s_seen);
+      ld16_cg(x + k * BP + seg, xv);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) s += cur[q] * xv[q];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (tid % 4 == 0) sv[rc] = bv[o + rc] - s;
+    __syncthreads();
+    T t = T(0);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) t += dv[q] * sv[seg + q];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    if (tid % 4 == 0) x[o + rc] = t;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicExch(done, j + 1);
+  } else {
+    // backward: thread (rc, seg) holds column rc, rows seg .. seg + 15 of
+    // each tile L[k, j] and of Dinv[j]
+    const int j = 2 * npan - 1 - pos, o = j * BP;
+    const T* Dj = Db + (long long)j * BP * BP;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) dv[q] = Dj[(seg + q) * BP + rc];
+    const T* Lc = Lb + (long long)seg * n + o + rc;   // + k BP n + q n
+    if (j + 1 < npan)
+#pragma unroll
+      for (int q = 0; q < 16; ++q) lt[q] = Lc[(long long)((npan - 1) * BP + q) * n];
+    wait_count(done, npan, &s_seen);              // every y_k is written
+    int seen = 0;
+    for (int k = npan - 1; k > j; --k) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) cur[q] = lt[q];
+      if (k - 1 > j)
+#pragma unroll
+        for (int q = 0; q < 16; ++q) lt[q] = Lc[(long long)((k - 1) * BP + q) * n];
+      if (npan - k > seen) seen = wait_count(done + 1, npan - k, &s_seen);
+      ld16_cg(x + k * BP + seg, xv);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) s += cur[q] * xv[q];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    if (tid % 4 == 0) sv[rc] = __ldcg(x + o + rc) - s;
+    __syncthreads();
+    T t = T(0);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) t += dv[q] * sv[seg + q];
+    t += __shfl_xor_sync(0xffffffffu, t, 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    if (tid % 4 == 0) x[o + rc] = t;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicExch(done + 1, npan - j);
+  }
+}
+
 // ---- launches ---------------------------------------------------------
 
 template <typename K>
@@ -908,6 +1433,93 @@ int launch_chol_solve(const void* L, const void* Dinv, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+#define CHECK_LAUNCH()                                   \
+  do {                                                   \
+    cudaError_t err_ = cudaGetLastError();               \
+    if (err_ != cudaSuccess) return (int)err_;           \
+  } while (0)
+
+// The small-batch factor after schur_assemble: the panel loop on the
+// host, one launch per step, in the order ops/fused_chol.py's
+// launch_config lists them (nlaunch of them; ERR_LAYOUT otherwise).
+template <typename T>
+int launch_panel_factor(void* L, void* Dinv, void* deq, void* bad, int B,
+                        int n, int nb, int smem_diag, int smem_tile,
+                        int smem_trail, int nlaunch, void* stream) {
+  if (B == 0) return 0;
+  if (nb != NB || smem_diag != SMEM_FAC<T> || smem_tile != SMEM_PTILE<T> ||
+      smem_trail != SMEM_TRAIL<T>)
+    return ERR_LAYOUT;
+  const int npan = n / BP, pw = NB / BP;
+  int count = (deq ? 2 : 0) + 1;
+  for (int p0 = 0; p0 < npan; p0 += pw) {
+    const int pend = min(p0 + pw, npan) - 1;
+    for (int jp = p0; jp <= pend; ++jp)
+      count += 1 + (jp < npan - 1) + (jp < pend);
+    count += pend < npan - 1;
+  }
+  if (count != nlaunch) return ERR_LAYOUT;
+  cudaError_t e;
+  if ((e = set_smem(panel_diag_kernel<T>, smem_diag)) != cudaSuccess ||
+      (e = set_smem(panel_l21_kernel<T>, smem_tile)) != cudaSuccess ||
+      (e = set_smem(panel_update_kernel<T>, smem_tile)) != cudaSuccess ||
+      (e = set_smem(trail_update_kernel<T>, smem_trail)) != cudaSuccess)
+    return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  T* Lp = (T*)L;
+  T* Dp = (T*)Dinv;
+  int* bp = (int*)bad;
+  if (deq) {
+    const int nblk = (n + NT - 1) / NT, nt = npan * (npan + 1) / 2;
+    panel_deq_kernel<T><<<B * nblk, NT, 0, st>>>(Lp, (T*)deq, n, nblk);
+    CHECK_LAUNCH();
+    panel_scale_kernel<T><<<B * nt, NT, 0, st>>>(Lp, (const T*)deq, n, nt);
+    CHECK_LAUNCH();
+  }
+  for (int p0 = 0; p0 < npan; p0 += pw) {
+    const int pend = min(p0 + pw, npan) - 1;
+    for (int jp = p0; jp <= pend; ++jp) {
+      panel_diag_kernel<T><<<B, NT, smem_diag, st>>>(Lp, Dp, bp, n, jp);
+      CHECK_LAUNCH();
+      const int rows = npan - 1 - jp, cols = pend - jp;
+      if (rows) {
+        panel_l21_kernel<T><<<B * rows, NT, smem_tile, st>>>(Lp, Dp, bp, n,
+                                                            jp, rows);
+        CHECK_LAUNCH();
+      }
+      if (cols) {
+        panel_update_kernel<T><<<B * rows * cols, NT, smem_tile, st>>>(
+            Lp, bp, n, jp, rows, cols);
+        CHECK_LAUNCH();
+      }
+    }
+    if (pend < npan - 1) {
+      const int t0 = (pend + 1) * BP, tt = (n - t0 + TT - 1) / TT;
+      const int ntile = tt * (tt + 1) / 2;
+      trail_update_kernel<T><<<B * ntile, NT, smem_trail, st>>>(
+          Lp, bp, n, p0 * BP, t0 - p0 * BP, t0, ntile);
+      CHECK_LAUNCH();
+    }
+  }
+  panel_finalize_kernel<T><<<B * npan, NT, 0, st>>>(Lp, Dp, bp, n);
+  CHECK_LAUNCH();
+  return 0;
+}
+
+template <typename T>
+int launch_panel_solve(const void* L, const void* Dinv, const void* Bm,
+                       long long b_bs, void* X, int B, int n, int nrhs,
+                       void* sync, int smem, void* stream) {
+  if (B == 0 || nrhs == 0) return 0;
+  if (smem != SMEM_PSOLVE<T>) return ERR_LAYOUT;
+  const int chains = B * nrhs;
+  panel_solve_kernel<T><<<chains * 2 * (n / BP), NT, smem,
+                          (cudaStream_t)stream>>>(
+      (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs,
+      chains, (int*)sync);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -929,6 +1541,18 @@ extern "C" {
                        int smem, void* stream) {                              \
     return launch_chol_solve<T>(L, Dinv, Bm, b_bs, X, B, n, nrhs, smem,       \
                                 stream);                                      \
+  }                                                                           \
+  int panel_factor_##SFX(void* L, void* Dinv, void* deq, void* bad, int B,    \
+                         int n, int nb, int smem_diag, int smem_tile,         \
+                         int smem_trail, int nlaunch, void* stream) {         \
+    return launch_panel_factor<T>(L, Dinv, deq, bad, B, n, nb, smem_diag,     \
+                                  smem_tile, smem_trail, nlaunch, stream);    \
+  }                                                                           \
+  int panel_solve_##SFX(const void* L, const void* Dinv, const void* Bm,      \
+                        long long b_bs, void* X, int B, int n, int nrhs,      \
+                        void* sync, int smem, void* stream) {                 \
+    return launch_panel_solve<T>(L, Dinv, Bm, b_bs, X, B, n, nrhs, sync,      \
+                                 smem, stream);                               \
   }
 
 FUSED_CHOL_EXPORTS(float, f32)
@@ -938,6 +1562,12 @@ FUSED_CHOL_EXPORTS(double, f64)
 int smem_optin(int device, int* bytes) {
   return (int)cudaDeviceGetAttribute(
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+// Streaming multiprocessors of `device`.
+int sm_count(int device, int* count) {
+  return (int)cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount,
+                                     device);
 }
 
 }  // extern "C"

@@ -23,12 +23,17 @@ KKT layer pads.
 A wrapper given CPU tensors (with ``device="cpu"``) computes the plain
 version; given CUDA tensors it launches its kernel or raises.  Each
 wrapper counts its calls that launch on the card in
-``<wrapper>.launches``; one call of a factor wrapper launches two device
-kernels (schur_assemble, then schur_factor) and counts one.  A solve
-wrapper launches solve_few or solve_many by the number of right-hand
-sides and also counts its calls per device kernel in
-``<wrapper>.kernels`` (`solve_kernel_counts`).
-`launch_config` gives each call's grids and shared memory.
+``<wrapper>.launches``, and its calls per device kernel in
+``<wrapper>.kernels`` (`factor_kernel_counts`, `solve_kernel_counts`).
+A factor call launches schur_assemble and then either schur_factor (one
+block per instance) or, for a batch much smaller than the card's SM
+count, panel_factor: the same factor as a host loop of launches that
+each spread one panel step over the grid.  A solve call launches
+solve_few or solve_many by the number of right-hand sides, or, for few
+(instance, right-hand side) pairs, panel_solve: one block per (pair,
+panel, sweep).  `launch_counts` also counts the calls of each of the two
+small-batch kernels.  `launch_config` gives each call's launches, grids
+and shared memory.
 
 A pivot <= 0 or not finite poisons the whole instance with NaN, in the
 kernels and the plain versions alike; the solvers read NaN as a
@@ -103,8 +108,76 @@ ASM_STAGES = 3    # schur_assemble cp.async ring depth
 FEW_RHS = 8       # chol_solve: nrhs <= FEW_RHS takes the mat-vec kernel
 _ERR_LAYOUT = -2  # a launcher's return: launch_config disagrees with it
 
+# The small-batch path: a factor call takes panel_factor when
+# SMALL_B_SHARE * B <= the device's SM count and n >= PANEL_FACTOR_MIN_N,
+# and a solve call with nrhs <= FEW_RHS takes panel_solve when
+# SMALL_B_SHARE * B * nrhs <= the SM count and n >= PANEL_SOLVE_MIN_N; a
+# larger batch, or a smaller n, keeps one block per instance (per
+# right-hand side).  The two n thresholds are measured on an H100 at B = 1
+# (chip_smoke.py's large_kkt phase, `small_batch_sweep`): below them the
+# one-block kernels were as fast or faster.
+SMALL_B_SHARE = 4
+PANEL_FACTOR_MIN_N = 256
+PANEL_SOLVE_MIN_N = 512
+PANEL_NB = 256    # panel_factor: outer panel width, the trailing updates' rank
+TRAIL_TILE = 128  # panel_factor: trail_update's output tile
+TRAIL_KC = 16     # panel_factor: trail_update's k-chunk
 
-def launch_config(kind, B, n, m_or_nrhs, esize, smem):
+
+def small_batch(kind, B, n, k, sms):
+    """Whether a `kind` ("factor" or "solve") call of B instances at n with
+    k right-hand sides (k = 1 for a factor) takes the small-batch kernels
+    on a device with `sms` SMs (0: never, one block per instance)."""
+    min_n = PANEL_FACTOR_MIN_N if kind == "factor" else PANEL_SOLVE_MIN_N
+    return bool(sms) and SMALL_B_SHARE * B * k <= sms and n >= min_n
+
+
+def _panel_smem(esize):
+    """Shared memory of panel_factor's kernels that use it, in bytes."""
+    tile_words = BP * (BP + 16 // esize)
+    return dict(diag=(3 * tile_words + BP) * esize,
+                tile=2 * tile_words * esize,
+                trail=(2 * 2 * TRAIL_KC * (TRAIL_TILE + 4)
+                       + TRAIL_TILE * (TRAIL_TILE + (8 if esize == 8
+                                                     else 4))) * esize)
+
+
+def _panel_factor_plan(B, n, esize, equilibrate):
+    """panel_factor's launches after schur_assemble, in the order the C
+    launcher makes them (see csrc/fused_chol.cu)."""
+    npan, pw = n // BP, PANEL_NB // BP
+    sm = _panel_smem(esize)
+    diag, tile, trail = sm["diag"], sm["tile"], sm["trail"]
+    out = []
+    if equilibrate:
+        out += [dict(kernel="panel_deq", grid=B * -(-n // 256), tile=256,
+                     smem=0),
+                dict(kernel="panel_scale", grid=B * npan * (npan + 1) // 2,
+                     tile=BP, smem=0)]
+    for p0 in range(0, npan, pw):
+        pend = min(p0 + pw, npan) - 1
+        for jp in range(p0, pend + 1):
+            rows, cols = npan - 1 - jp, pend - jp
+            out.append(dict(kernel="panel_diag", grid=B, tile=BP,
+                            smem=diag, panel=jp))
+            if rows:
+                out.append(dict(kernel="panel_l21", grid=B * rows, tile=BP,
+                                smem=tile, panel=jp))
+            if cols:
+                out.append(dict(kernel="panel_update", grid=B * rows * cols,
+                                tile=BP, smem=tile, panel=jp, cols=cols))
+        if pend < npan - 1:
+            t0 = (pend + 1) * BP
+            tt = -(-(n - t0) // TRAIL_TILE)
+            out.append(dict(kernel="trail_update", grid=B * tt * (tt + 1) // 2,
+                            tile=TRAIL_TILE, smem=trail, k0=p0 * BP,
+                            rank=t0 - p0 * BP, t0=t0))
+    out.append(dict(kernel="panel_finalize", grid=B * npan, tile=BP, smem=0))
+    return out
+
+
+def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
+                  equilibrate=False):
     """The device launches of one wrapper call, as csrc/fused_chol.cu lays
     them out: a list of dicts with the kernel's name, its grid (blocks of
     256 threads), its output tile and its dynamic shared memory in bytes.
@@ -114,10 +187,21 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem):
     instance.  kind "solve" (m_or_nrhs = nrhs): solve_few, one block per
     (instance, right-hand side), for nrhs <= FEW_RHS; else solve_many, one
     block per (instance, 64 right-hand sides).  esize is the element size
-    in bytes.  No layout depends on n: a block holds one panel, never a
-    whole right-hand side.  Raises ValueError when n is not a multiple of
-    BP, or a block needs more than `smem` bytes (the device's opt-in
-    shared memory per block)."""
+    in bytes.  No block's shared memory depends on n: a block holds one
+    panel, never a whole right-hand side.
+
+    `sms` is the device's SM count (0, the default: one block per
+    instance at any B).  Where `small_batch` holds, a factor is
+    schur_assemble and then panel_factor's launches, each with its
+    panel (`panel`), the column tiles left in its outer panel (`cols`),
+    or the trailing update's first column (`k0`), rank and first
+    trailing row (`t0`); with `equilibrate`, two launches first compute
+    deq and scale S.  A solve is one panel_solve launch: one block per
+    (instance, right-hand side, 64-row panel, sweep).
+
+    Raises ValueError when n is not a multiple of BP, or a block needs
+    more than `smem` bytes (the device's opt-in shared memory per
+    block)."""
     _check_n(n)
     vw = 16 // esize                 # elements in a 16-byte copy
     tile_words = BP * (BP + vw)      # a 64x64 tile with its row pad
@@ -127,12 +211,18 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem):
                     tile=ASM_TILE,
                     smem=(ASM_STAGES * 2 * ASM_TILE * (ASM_KC + vw)
                           + 2 * ASM_KC * (ASM_TILE + vw)
-                          + ASM_STAGES * ASM_KC) * esize),
-               dict(kernel="schur_factor", grid=B, tile=BP,
-                    smem=(3 * tile_words + BP) * esize)]
+                          + ASM_STAGES * ASM_KC) * esize)]
+        if small_batch(kind, B, n, 1, sms):
+            out += _panel_factor_plan(B, n, esize, equilibrate)
+        else:
+            out.append(dict(kernel="schur_factor", grid=B, tile=BP,
+                            smem=(3 * tile_words + BP) * esize))
     elif kind == "solve":
         nrhs = m_or_nrhs
-        if nrhs <= FEW_RHS:
+        if nrhs <= FEW_RHS and small_batch(kind, B, n, nrhs, sms):
+            out = [dict(kernel="panel_solve", grid=B * nrhs * 2 * (n // BP),
+                        tile=BP, smem=2 * BP * esize)]
+        elif nrhs <= FEW_RHS:
             out = [dict(kernel="solve_few", grid=B * nrhs, tile=1,
                         smem=17 * BP * esize)]
         else:
@@ -169,8 +259,15 @@ def _kernels():
             f = getattr(lib, "chol_solve_" + sfx)
             f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, ci, vp]
             f.restype = ci
-        lib.smem_optin.argtypes = [ci, ctypes.POINTER(ci)]
-        lib.smem_optin.restype = ci
+            f = getattr(lib, "panel_factor_" + sfx)
+            f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+            f.restype = ci
+            f = getattr(lib, "panel_solve_" + sfx)
+            f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, vp, ci, vp]
+            f.restype = ci
+        for f in (lib.smem_optin, lib.sm_count):
+            f.argtypes = [ci, ctypes.POINTER(ci)]
+            f.restype = ci
         _lib = lib
     return _lib
 
@@ -192,20 +289,30 @@ def _inner_contig(t, name):
         raise ValueError(f"{name} must be contiguous in its last two axes")
 
 
-_smem = {}
+_attrs = {}
+
+
+def _device_attr(name, device):
+    """A device attribute by its C query (`smem_optin`, `sm_count`)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if (name, idx) not in _attrs:
+        out = ctypes.c_int(0)
+        err = getattr(_kernels(), name)(idx, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"{name} failed: CUDA error {err}")
+        _attrs[name, idx] = out.value
+    return _attrs[name, idx]
 
 
 def _smem_optin(device):
     """Shared memory one block of `device` may opt in to, in bytes."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _smem:
-        out = ctypes.c_int(0)
-        err = _kernels().smem_optin(idx, ctypes.byref(out))
-        if err:
-            raise RuntimeError(f"smem_optin failed: CUDA error {err}")
-        _smem[idx] = out.value
-    return _smem[idx]
+    return _device_attr("smem_optin", device)
+
+
+def _sms(device):
+    """The SM count the small-batch rule reads for `device`."""
+    return _device_attr("sm_count", device)
 
 
 def _run(name, t, *args):
@@ -238,13 +345,24 @@ def _assemble(P3, Gt, gt_bs, d2, d_bs, L):
 
 
 def _factor(L, Dinv, deq):
-    """schur_factor: L := chol(S) in place, Dinv, and deq if given (the
-    second launch)."""
+    """L := chol(S) in place, Dinv, and deq if given: schur_factor (one
+    launch), or panel_factor's launches for a small batch.  Returns the
+    kernel's name."""
     Bsz, n, _ = L.shape
     cfg = launch_config("factor", Bsz, n, 1, L.element_size(),
-                        _smem_optin(L.device))[1]
-    _run("schur_factor", L, L.data_ptr(), Dinv.data_ptr(),
-         deq.data_ptr() if deq is not None else None, Bsz, n, cfg["smem"])
+                        _smem_optin(L.device), _sms(L.device),
+                        deq is not None)[1:]
+    dq = deq.data_ptr() if deq is not None else None
+    if cfg[0]["kernel"] == "schur_factor":
+        _run("schur_factor", L, L.data_ptr(), Dinv.data_ptr(), dq, Bsz, n,
+             cfg[0]["smem"])
+        return "schur_factor"
+    sm = _panel_smem(L.element_size())
+    bad = torch.zeros(Bsz, dtype=torch.int32, device=L.device)
+    _run("panel_factor", L, L.data_ptr(), Dinv.data_ptr(), dq,
+         bad.data_ptr(), Bsz, n, PANEL_NB, sm["diag"], sm["tile"],
+         sm["trail"], len(cfg))
+    return "panel_factor"
 
 
 def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
@@ -259,8 +377,7 @@ def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
     Dinv = torch.empty((Bsz, n // BP, BP, BP), **kw)
     deq = torch.empty((Bsz, n), **kw) if equilibrate else None
     _assemble(P3, Gt, gt_bs, d2, d_bs, L)
-    _factor(L, Dinv, deq)
-    return L, Dinv, deq
+    return L, Dinv, deq, _factor(L, Dinv, deq)
 
 
 def _launch_solve(L3, D4, Bm, b_bs, nrhs):
@@ -274,10 +391,16 @@ def _launch_solve(L3, D4, Bm, b_bs, nrhs):
     if D4.data_ptr() % 16:
         D4 = D4.clone()
     cfg = launch_config("solve", Bsz, n, nrhs, L3.element_size(),
-                        _smem_optin(L3.device))[0]
+                        _smem_optin(L3.device), _sms(L3.device))[0]
     X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
-    _run("chol_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(), b_bs,
-         X.data_ptr(), Bsz, n, nrhs, cfg["smem"])
+    if cfg["kernel"] == "panel_solve":
+        sync = torch.zeros(1 + 2 * Bsz * nrhs, dtype=torch.int32,
+                           device=L3.device)
+        _run("panel_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(),
+             b_bs, X.data_ptr(), Bsz, n, nrhs, sync.data_ptr(), cfg["smem"])
+    else:
+        _run("chol_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(),
+             b_bs, X.data_ptr(), Bsz, n, nrhs, cfg["smem"])
     return X, cfg["kernel"]
 
 
@@ -313,8 +436,10 @@ def fused_schur_cholesky(P, Gt, dinv2, *, equilibrate=False,
         raise ValueError("Gt batch does not match P")
     gt_bs = Gt.stride(0) if Gt.dim() == 3 else 0
     d_bs = d2.stride(0) if d2.shape[0] == Bsz and Bsz > 1 else 0
-    L, Dinv, deq = _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate)
+    L, Dinv, deq, kname = _launch_schur(P3, Gt, gt_bs, d2, d_bs,
+                                        equilibrate)
     fused_schur_cholesky.launches += 1
+    fused_schur_cholesky.kernels[kname] += 1
     if single:
         L, Dinv = L[0], Dinv[0]
         deq = deq[0] if deq is not None else None
@@ -360,9 +485,10 @@ def fused_schur_cholesky_batched(P, Gt, dinv2, tb: int = 8, *,
         raise ValueError("expected Gt (n, m) and dinv2 (B, m)")
     if dev.type == "cpu":
         return fused_schur_cholesky_batched_ref(P, Gt, dinv2, equilibrate)
-    L, Dinv, deq = _launch_schur(P, Gt, 0, dinv2, dinv2.stride(0),
-                                 equilibrate)
+    L, Dinv, deq, kname = _launch_schur(P, Gt, 0, dinv2, dinv2.stride(0),
+                                        equilibrate)
     fused_schur_cholesky_batched.launches += 1
+    fused_schur_cholesky_batched.kernels[kname] += 1
     return (L, Dinv) if deq is None else (L, Dinv, deq)
 
 
@@ -388,18 +514,34 @@ def fused_cholesky_solve_batched(L, Dinv, B_rows, tb: int = 8, *,
 
 WRAPPERS = (fused_schur_cholesky, fused_cholesky_solve,
             fused_schur_cholesky_batched, fused_cholesky_solve_batched)
+FACTOR_WRAPPERS = (fused_schur_cholesky, fused_schur_cholesky_batched)
 SOLVE_WRAPPERS = (fused_cholesky_solve, fused_cholesky_solve_batched)
+FACTOR_KERNELS = ("schur_factor", "panel_factor")
+SOLVE_KERNELS = ("solve_few", "solve_many", "panel_solve")
+SMALL_BATCH_KERNELS = ("panel_factor", "panel_solve")
 
 
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
+    for w in FACTOR_WRAPPERS:
+        w.kernels = dict.fromkeys(FACTOR_KERNELS, 0)
     for w in SOLVE_WRAPPERS:
-        w.kernels = {"solve_few": 0, "solve_many": 0}
+        w.kernels = dict.fromkeys(SOLVE_KERNELS, 0)
 
 
 def launch_counts():
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """Calls of each wrapper that launched on the card, and calls of each
+    small-batch kernel (over both wrappers of its kind)."""
+    out = {w.__name__: w.launches for w in WRAPPERS}
+    for k in SMALL_BATCH_KERNELS:
+        out[k] = sum(w.kernels.get(k, 0) for w in WRAPPERS)
+    return out
+
+
+def factor_kernel_counts():
+    """Calls of each factor wrapper by the factor kernel they launched."""
+    return {w.__name__: dict(w.kernels) for w in FACTOR_WRAPPERS}
 
 
 def solve_kernel_counts():

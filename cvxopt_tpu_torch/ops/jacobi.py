@@ -149,9 +149,12 @@ def _nan_safe(fn, S):
             V.masked_fill(bad[..., None, None], nan))
 
 
-def eigh_accurate(A):
+def eigh_accurate(A, sweeps: int = 5, force: bool = False):
     """(w ascending, V) of symmetric A by float64 eigh of (A + A')/2,
-    in A's dtype."""
+    in A's dtype.  `sweeps` and `force` are the JAX package's Jacobi
+    polish controls, taken for its signature and ignored: the polish
+    repairs an f32-grade eigh, and float64 eigh here is what the JAX
+    package runs when it needs no polish."""
     w, V = _nan_safe(torch.linalg.eigh, _sym64(A))
     return w.to(A.dtype), V.to(A.dtype)
 
@@ -162,9 +165,10 @@ def eigvalsh_accurate(A):
     return _nan_safe(torch.linalg.eigvalsh, _sym64(A)).to(A.dtype)
 
 
-def gram_eigh_accurate(M):
+def gram_eigh_accurate(M, sweeps: int = 6, force: bool = False):
     """(w ascending, V) with M'M = V diag(w) V', by float64 eigh, in
-    M's dtype."""
+    M's dtype.  `sweeps` and `force` are taken and ignored, as in
+    `eigh_accurate`."""
     M64 = M.double()
     w, V = _nan_safe(torch.linalg.eigh,
                      _sym64(M64.transpose(-1, -2) @ M64))

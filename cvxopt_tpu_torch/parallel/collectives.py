@@ -21,14 +21,14 @@ import torch
 import torch.distributed as dist
 
 from cvxopt_tpu_torch import cones
-from cvxopt_tpu_torch._device import check_on
+from cvxopt_tpu_torch._device import as_tensor, check_on
 
 
 def _on(x, mesh):
     """A tensor stays where it is and must lie on the mesh's device; a
     Python number becomes a tensor there."""
     if not torch.is_tensor(x):
-        return torch.as_tensor(x, device=mesh.device)
+        return as_tensor(x, mesh.device)
     check_on(mesh.device, x)
     return x
 

@@ -25,7 +25,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from cvxopt_tpu_torch._device import resolve_device
+from cvxopt_tpu_torch._device import as_tensor, resolve_device
 from cvxopt_tpu_torch._tree import _leaves, _tmap
 from cvxopt_tpu_torch.parallel import collectives as coll
 
@@ -94,7 +94,7 @@ def shard_batch(tree, mesh: Mesh, axis: str = "batch"):
     check_axis(mesh, axis)
 
     def put(x):
-        x = torch.as_tensor(x, device=mesh.device)
+        x = as_tensor(x, mesh.device).to(mesh.device)
         if x.dim() >= 1 and x.shape[0] > 0 and x.shape[0] % mesh.size == 0:
             return x[mesh.local_rows(x.shape[0])]
         return x

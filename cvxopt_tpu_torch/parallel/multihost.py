@@ -11,8 +11,10 @@ WORLD_SIZE, RANK).
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 
 from cvxopt_tpu_torch._device import resolve_device
@@ -28,10 +30,24 @@ def initialize(coordinator_address: Optional[str] = None,
     ``tcp://coordinator_address`` (else ``env://``, or kwargs'
     `init_method`), `num_processes` ranks and this one `process_id`;
     other kwargs (`timeout`, `store`, ...) pass through.  A no-op when a
-    process group is initialized already; a failed init raises."""
+    process group is initialized already; a failed init raises.
+
+    On 'cuda' the process is first bound to one card, so that the ranks
+    of a host do not all land on card 0: card LOCAL_RANK (torchrun's),
+    else this rank (`process_id`, else RANK, else 0) modulo the host's
+    card count."""
     if dist.is_initialized():
         return
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            rank = process_id if process_id is not None else \
+                int(os.environ.get("RANK", 0))
+            card = rank % torch.cuda.device_count()
+        else:
+            card = int(local)
+        torch.cuda.set_device(card)
     if "init_method" not in kwargs and "store" not in kwargs:
         kwargs["init_method"] = (f"tcp://{coordinator_address}"
                                  if coordinator_address else "env://")

@@ -148,19 +148,113 @@ def test_factor_reads_expanded_dinv2(cuda_device):
 def test_solve_at_n_25600(cuda_device):
     """float64 at n = 25600, against the plain version: one right-hand
     side alone (200 KB) would nearly fill a block's 227 KB of shared
-    memory, so the kernels keep finished panels in device memory."""
+    memory, so the kernels keep finished panels in device memory.  Two
+    right-hand sides of one instance take panel_solve: 800 blocks, two
+    chains of 400 panels a sweep."""
+    from chip_smoke import unit_lower
     n = 25600
     g = torch.Generator(device=cuda_device).manual_seed(8)
     kw = dict(dtype=torch.float64, device=cuda_device)
-    L = torch.randn((n, n), generator=g, **kw).tril_(-1).div_(n)
-    L.diagonal().add_(1.0)
-    eye = torch.eye(fc.BP, **kw)
-    Dinv = torch.linalg.solve_triangular(fc._diag_blocks(L), eye,
-                                         upper=False).contiguous()
+    L, Dinv = unit_lower(n, g, kw)
     rhs = torch.randn((2, n), generator=g, **kw)
+    fc.reset_launch_counts()
     x = fc.fused_cholesky_solve(L, Dinv, rhs)
+    assert fc.launch_counts()["panel_solve"] == 1
     xr = fc.fused_cholesky_solve_ref(L, Dinv, rhs)
     assert _rel(x, xr) <= 1e-12
+
+
+# ---- the small-batch kernels (panel_factor, panel_solve) -------------------
+
+def _kernel_of(kind, B, n, k, dtype, device):
+    """The factor or solve kernel launch_config picks on this card."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    cfg = fc.launch_config(kind, B, n, k, esize, fc._smem_optin(device),
+                           fc._sms(device))
+    return cfg[-1]["kernel"] if kind == "solve" else \
+        ("schur_factor" if cfg[-1]["kernel"] == "schur_factor"
+         else "panel_factor")
+
+
+def _convex(B, n, m, kw, seed, shift):
+    """S = F F' + shift I + Gt diag(d) Gt' with F (n, n/4), Gt scaled by
+    1/sqrt(n): bench.py's large-KKT data (shift 1) at a smaller n."""
+    rng = np.random.default_rng(seed)
+    F = torch.as_tensor(rng.standard_normal((B, n, max(n // 4, 1))), **kw)
+    P = F @ F.transpose(1, 2) + shift * torch.eye(n, **kw)
+    Gt = torch.as_tensor(rng.standard_normal((B, n, m)) / np.sqrt(n), **kw)
+    d2 = torch.as_tensor(rng.uniform(0.5, 2.0, (B, m)), **kw)
+    return P, Gt, d2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("equilibrate", [False, True])
+@pytest.mark.parametrize("B,n", [(1, 128), (2, 128), (8, 128), (1, 1280),
+                                 (2, 1280), (8, 1280), (1, 4096),
+                                 (2, 4096), (8, 4096)])
+def test_small_batch_kernels_match_plain_on_card(cuda_device, monkeypatch,
+                                                 dtype, tol, equilibrate,
+                                                 B, n):
+    """panel_factor (per-instance and shared Gt) and panel_solve at nrhs 1
+    and 2 against the plain versions; L's strict upper triangle is 0.
+    The n thresholds are set to one panel, so that n = 128 takes the
+    small-batch kernels too.
+    P is shifted by n I, as the other kernel tests' data, so that S's
+    condition number stays near 3 and the float32 tolerance measures the
+    kernel's arithmetic rather than the condition number."""
+    monkeypatch.setattr(fc, "PANEL_FACTOR_MIN_N", fc.BP)
+    monkeypatch.setattr(fc, "PANEL_SOLVE_MIN_N", fc.BP)
+    kw = dict(dtype=dtype, device=cuda_device)
+    P, Gtb, d2 = _convex(B, n, 192, kw, seed=n + B, shift=n)
+    assert _kernel_of("factor", B, n, 1, dtype, cuda_device) == \
+        "panel_factor"
+    fc.reset_launch_counts()
+    for Gt, factor in ((Gtb, fc.fused_schur_cholesky),
+                       (Gtb[0], lambda P, G, d, equilibrate:
+                        fc.fused_schur_cholesky_batched(
+                            P, G, d, tb=1, equilibrate=equilibrate))):
+        out = factor(P, Gt, d2, equilibrate=equilibrate)
+        ref = fc.fused_schur_cholesky_ref(P, Gt, d2, equilibrate)
+        for a, b in zip(out, ref):
+            assert _rel(a, b) <= tol
+        assert bool((torch.triu(out[0], 1) == 0).all())
+    assert fc.launch_counts()["panel_factor"] == 2
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    for nrhs in (1, 2):
+        assert _kernel_of("solve", B, n, nrhs, dtype, cuda_device) == \
+            "panel_solve"
+        rhs = torch.randn((B, nrhs, n), generator=g, **kw)
+        x = fc.fused_cholesky_solve(out[0], out[1], rhs)
+        xr = fc.fused_cholesky_solve_ref(out[0], out[1], rhs)
+        assert _rel(x, xr) <= tol, nrhs
+    assert fc.launch_counts()["panel_solve"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_batch_non_pd_instance_between_pd_ones(cuda_device, dtype):
+    """On the small-batch path the middle instance, not PD from its sixth
+    panel on, comes back all NaN in L, Dinv and the solve; its neighbours
+    agree with the plain version and equal, bit for bit, their factor
+    without it."""
+    B, n = 3, 1280
+    kw = dict(dtype=dtype, device=cuda_device)
+    P, Gt, d2 = _convex(B, n, 128, kw, seed=11, shift=n)
+    P[1, 350, 350] = -1e6
+    L, D = fc.fused_schur_cholesky(P, Gt, d2)
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    tol = dict(TOLS)[dtype]
+    assert bool(torch.isnan(L[1]).all() and torch.isnan(D[1]).all())
+    for k in (0, 2):
+        assert _rel(L[k], Lr[k]) <= tol and _rel(D[k], Dr[k]) <= tol
+    two = [0, 2]
+    L2, D2 = fc.fused_schur_cholesky(P[two].contiguous(),
+                                     Gt[two].contiguous(), d2[two])
+    assert torch.equal(L[two], L2) and torch.equal(D[two], D2)
+    x = fc.fused_cholesky_solve(L, D, torch.ones((B, 1, n), **kw))
+    assert bool(torch.isnan(x[1]).all())
+    assert bool(torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all())
 
 
 def _interior(rng, d, B):
@@ -304,7 +398,8 @@ def test_adaptive_factor_on_card_matches_cpu(cuda_device):
 def test_cpl_kernel_shapes_match_plain_on_card(cuda_device, nrhs):
     """The batched cpl path's f64 shapes (chip_smoke.py rows 9-11): the
     per-instance factor at n = 320 (257 padded), m = 513, and its solves
-    at nrhs 1 (solve_few) and 64 (solve_many), B = 16."""
+    at nrhs 1 and 64, B = 16 (on an H100 the small-batch kernels at nrhs
+    1, solve_many at 64)."""
     rng = np.random.default_rng(15)
     B, n, m = 16, 320, 513
     kw = dict(dtype=torch.float64, device=cuda_device)
@@ -317,7 +412,7 @@ def test_cpl_kernel_shapes_match_plain_on_card(cuda_device, nrhs):
     rhs = torch.as_tensor(rng.standard_normal((B, nrhs, n)), **kw)
     x = fc.fused_cholesky_solve(L, D, rhs)
     assert _rel(x, fc.fused_cholesky_solve_ref(Lr, Dr, rhs)) <= 1e-12
-    kernel = "solve_few" if nrhs <= fc.FEW_RHS else "solve_many"
+    kernel = _kernel_of("solve", B, n, nrhs, torch.float64, cuda_device)
     assert fc.solve_kernel_counts()["fused_cholesky_solve"][kernel] == 1
 
 

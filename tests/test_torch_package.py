@@ -243,10 +243,15 @@ def test_cpu_run_does_not_count_launches():
                             torch.ones(2), device="cpu")
     fc.fused_cholesky_solve(torch.eye(64), torch.eye(64).reshape(1, 64, 64),
                             torch.ones(1, 64), device="cpu")
-    assert fc.launch_counts() == {w.__name__: 0 for w in fc.WRAPPERS}
+    assert fc.launch_counts() == {
+        **{w.__name__: 0 for w in fc.WRAPPERS},
+        "panel_factor": 0, "panel_solve": 0}
     assert fc.solve_kernel_counts() == {
-        w.__name__: {"solve_few": 0, "solve_many": 0}
+        w.__name__: {"solve_few": 0, "solve_many": 0, "panel_solve": 0}
         for w in fc.SOLVE_WRAPPERS}
+    assert fc.factor_kernel_counts() == {
+        w.__name__: {"schur_factor": 0, "panel_factor": 0}
+        for w in fc.FACTOR_WRAPPERS}
 
 
 def test_build_is_lazy_and_hashed():

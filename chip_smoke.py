@@ -89,13 +89,17 @@ Phases, each printing one JSON line:
            library's); kernel, plain and library times (torch.linalg.
            cholesky of torch's S, torch.cholesky_solve) in turns, the
            factor's two launches apart, one run of the one-block layout,
-           a torch.profiler breakdown of one f64 factor and a sweep over n
-           at B = 1 (small-batch against one-block kernels: the data
-           behind fused_chol's n thresholds); then one QP at n = m =
+           a torch.profiler breakdown of one f64 factor (`factor_profile`:
+           each kernel's device ms and launches, the DMMA kernels'
+           TFLOP/s and share of the 67 TFLOP/s peak, and the device time
+           the lookahead overlaps, `lookahead_overlap_ms`) and a sweep
+           over n at B = 1 (small-batch against one-block kernels: the
+           data behind fused_chol's n thresholds); then one QP at n = m =
            10,240 through solvers.qp (chol2, so the kernels at B = 1) held
            to gap, pres and dres <= 1e-7 and to x of the same QP through
-           kktsolver='chol' within 1e-6, with its iterations, wall and
-           kernel launches
+           kktsolver='chol' within 1e-6, with its iterations, wall, kernel
+           launches and each factor call's device ms
+           (`factor_call_device_ms`)
 
 Each solver phase sets the kernels' launch counts to 0 just before its
 timed solve and reads them just after.  Then a line with each phase's
@@ -122,13 +126,16 @@ PHASES = ("env", "build", "kernels", "cascade", "entry", "socp",
 
 # published peaks of one H100 SXM (NVIDIA data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth.  67 TFLOP/s is also the FP64
-# tensor-core (DMMA) peak, which the f64 rows' bounds use although the
-# kernels run FP64 FMAs (34 TFLOP/s), not DMMA
+# tensor-core (DMMA) peak, which the f64 rows' bounds use: the f64
+# schur_assemble and trail_update run on DMMA, the other f64 kernels on
+# FP64 FMAs (34 TFLOP/s)
 PEAK_F32_FLOPS = 67e12
+PEAK_DMMA_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOP_RATE = {4: "FP32 without tensor cores, 67 TFLOP/s",
-             8: "FP64 tensor cores (DMMA), 67 TFLOP/s; the kernels use "
-                "FP64 FMA (34 TFLOP/s), not DMMA"}
+             8: "FP64 tensor cores (DMMA), 67 TFLOP/s; schur_assemble and "
+                "trail_update use DMMA, the other kernels FP64 FMA "
+                "(34 TFLOP/s)"}
 
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -2490,9 +2497,26 @@ def _sweep_point(n, dtype):
             "solve_one_block_ms": one_block_ms(sol)}
 
 
+def trail_flops(plan, n):
+    """FLOPs the trailing updates of a panel_factor plan need: 2 x rank
+    per element of L's lower triangle that each updates."""
+    total = 0.0
+    for c in plan:
+        if c["kernel"] != "trail_update":
+            continue
+        c0, c1 = c.get("col0", c["t0"]), c.get("col1", n)
+        total += 2.0 * c["rank"] * sum(n - j for j in range(c0, c1))
+    return total
+
+
 def large_kkt_profile(F, Gt_np, d_np):
     """torch.profiler over one f64 factor call at n = 10,240: device ms and
-    launches of each kernel (the assembly, panel_factor's six)."""
+    launches of each kernel (the assembly, panel_factor's six); the DMMA
+    kernels' (schur_assemble, trail_update) achieved TFLOP/s and share of
+    the 67 TFLOP/s DMMA peak, for the FLOPs the call needs; and the device
+    time the lookahead overlaps: the sum of panel_factor's kernel times
+    minus its elapsed time (CUDA events around it, outside the
+    profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from cvxopt_tpu_torch.ops import fused_chol as fc
@@ -2500,8 +2524,10 @@ def large_kkt_profile(F, Gt_np, d_np):
     Fd = torch.as_tensor(F, **kw)
     P = Fd @ Fd.T
     P.diagonal().add_(1.0)
+    del Fd
     Gt = torch.as_tensor(Gt_np, **kw)
     d = torch.as_tensor(d_np, **kw)
+    n, m = Gt.shape
     fc.fused_schur_cholesky(P, Gt, d)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2510,12 +2536,57 @@ def large_kkt_profile(F, Gt_np, d_np):
         torch.cuda.synchronize()
     out = {}
     for r in device_rows(prof):
-        m = re.search(r"(\w+_kernel)", r["name"])
-        k = out.setdefault(m.group(1) if m else r["name"][:40],
+        mm = re.search(r"(\w+_kernel)", r["name"])
+        k = out.setdefault(mm.group(1) if mm else r["name"][:40],
                            {"launches": 0, "device_ms": 0.0})
         k["launches"] += r["count"]
         k["device_ms"] += r["device_ms"]
-    return out
+    plan = fc.launch_config("factor", 1, n, m, 8,
+                            fc._smem_optin(P.device), fc._sms(P.device))
+    flops = {"schur_assemble": n * (n + 1.0) * m,
+             "trail_update": trail_flops(plan, n)}
+    for name, k in out.items():
+        base = next((f for f in flops if name.startswith(f)), None)
+        if base and k["device_ms"] > 0:
+            k["flops"] = flops[base]
+            k["tflops"] = flops[base] / k["device_ms"] / 1e9
+            k["share_of_dmma_peak"] = k["tflops"] * 1e12 / PEAK_DMMA_FLOPS
+    asm_ms, fac_ms = schur_split_ms(P[None], Gt, d[None], reps=3, warmup=1)
+    kernels_ms = sum(k["device_ms"] for name, k in out.items()
+                     if name.startswith(("panel_", "trail_update")))
+    return {"kernels": out, "assemble_elapsed_ms": asm_ms,
+            "panel_factor_elapsed_ms": fac_ms,
+            "panel_factor_kernels_ms": kernels_ms,
+            "lookahead_overlap_ms": kernels_ms - fac_ms}
+
+
+class factor_call_events:
+    """Within the block, each factor call's launches (schur_assemble and
+    the factor) between two CUDA events: a list of (start, end) events,
+    read after a synchronize.  Records on the stream only; adds no host
+    synchronization."""
+
+    def __enter__(self):
+        import torch
+        from cvxopt_tpu_torch.ops import fused_chol as fc
+        self.fc, self.calls = fc, []
+        self.orig = orig = fc._launch_schur
+
+        def timed(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = orig(*a, **k)
+            ev[1].record()
+            self.calls.append(ev)
+            return out
+
+        fc._launch_schur = timed
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.fc._launch_schur = self.orig
+        return False
 
 
 def phase_large_kkt(log, results):
@@ -2557,7 +2628,8 @@ def phase_large_kkt(log, results):
     torch.cuda.synchronize()
     fc.reset_launch_counts()
     t0 = time.perf_counter()
-    sol = solvers.qp(P, qd, G, h, options=LARGE_KKT_OPTS)
+    with factor_call_events() as calls:
+        sol = solvers.qp(P, qd, G, h, options=LARGE_KKT_OPTS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = fc.launch_counts()
@@ -2569,6 +2641,7 @@ def phase_large_kkt(log, results):
           "primal_objective": sol["primal objective"],
           "launches": counts, "factor_kernels": fc.factor_kernel_counts(),
           "solve_kernels": fc.solve_kernel_counts(),
+          "factor_call_device_ms": [a.elapsed_time(b) for a, b in calls],
           "options": LARGE_KKT_OPTS}
     if sol["status"] != "optimal" or any(
             v is None or v > 1e-7 for v in (qp["gap"], qp["pres"],

@@ -43,6 +43,29 @@
 // 1.5 MB per instance, 1.6 GB in all, about 0.3 ms at the L2's ~5.5 TB/s
 // against 0.73 ms of FFMA at the FP32 peak.
 //
+// f64 schur_assemble runs on the FP64 tensor cores (DMMA, 67 TFLOP/s;
+// the FP64 FMAs give half that).  Hopper's wgmma has no f64 form, so it is
+// mma.sync (m16n8k8 f64, IEEE double).  One block of 8 warps per 128x128
+// tile, each warp a 32x64 piece as 2 x 8 DMMA tiles of 16x8 whose 64
+// accumulators stay in registers.  At n = m = 10,240 the tile reads
+// 2 x 128 x m doubles for 2 x 128^2 x m FLOP, 16 FLOP/B: about 68 GB
+// through L2, ~12 ms at its ~5.5 TB/s, near the 16 ms of the DMMA peak,
+// so the design keeps operands streaming from L2: k-chunks of DKC = 32
+// are copied, k contiguous as Gt holds them, by a 3-stage cp.async ring
+// (one barrier per chunk, two chunks in flight), and the fragments are
+// read straight from that layout at a row pitch of DKC + 4 doubles, where
+// the 16 lanes of each half-warp's LDS.64 fall on 16 different bank pairs
+// (64-bit operands get no ldmatrix).  dinv2 rides with the chunk and
+// scales the A fragments in registers, so the scaled G is never formed.
+// The diagonal tile's 64x64 quadrant above the diagonal is skipped by the
+// two warps that own it.  On an NVIDIA H100 80GB HBM3 at 700 W this runs
+// at 37-38 TFLOP/s, 55-57 % of the DMMA peak, at n = m = 10,240
+// (scripts/torch_f64_factor.py).  Variants built and timed the same way
+// were no faster (PERF.md): m16n8k4 and m16n8k16 about 1.5 % slower than
+// m16n8k8, rings from 5 x 16 to 2 x 48 deep no faster than 3 x 32.  So
+// neither copy latency nor the mma shape sets the pace; what does is not
+// measured (no profiler of the SM's pipes runs on that machine).
+//
 // schur_factor is latency-bound: 64 dependent pivots per panel.  The
 // diagonal block is factored in shared memory by 16-column sub-panels:
 // the sub-panel's columns are updated by those to their left (all
@@ -77,6 +100,11 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstring>
+#include <initializer_list>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -267,11 +295,12 @@ __device__ __forceinline__ void tri_tile(int t, int& I, int& J) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 2 : 1)
+__global__ void __launch_bounds__(NT, 2)
 schur_assemble_kernel(const T* __restrict__ P, long long p_bs,
                       const T* __restrict__ Gt, long long gt_bs,
                       const T* __restrict__ dinv2, long long d_bs,
                       T* __restrict__ L, int B, int n, int m, int vec) {
+  static_assert(sizeof(T) == 4, "f64 takes schur_assemble_f64_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int PA = APITCH<T>, PT = AT + VW<T>;
   T* ring = reinterpret_cast<T*>(smem_raw);   // STAGES x {A, B} x AT x PA
@@ -380,6 +409,155 @@ schur_assemble_kernel(const T* __restrict__ P, long long p_bs,
       const long long e = (long long)row * n + col;
       Lb[e] = acc[i][j] + Pb[e];
     }
+  }
+}
+
+// ---- f64 on the FP64 tensor cores (DMMA) --------------------------------
+
+constexpr int DKC = 32;        // k-chunk of the DMMA main loop
+constexpr int DSTAGES = 3;     // its cp.async ring depth
+constexpr int DPK = DKC + 4;   // ring row pitch in doubles (see dmma_tile)
+constexpr int MK = 8;          // k of one mma.sync
+// shared memory of schur_assemble and trail_update in f64
+constexpr int SMEM_DMMA = (DSTAGES * 2 * AT * DPK + DSTAGES * DKC) * 8;
+
+// One m16n8k8 DMMA (f64, IEEE double): c += A B for a 16x8 A, an 8x8 B and
+// a 16x8 C.  Lane l, g = l / 4, t = l % 4, holds A[g + 8 (q % 2)][t + 4
+// (q / 2)] in a[q] (q < 4), B[t + 4 q][g] in b[q] (q < 2),
+// C[g][2t + {0, 1}] in c[0], c[1] and C[g + 8][2t + {0, 1}] in c[2], c[3].
+__device__ __forceinline__ void dmma(double* c, const double* a, const double* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Warp w's piece of a 128x128 tile: rows 32 (w / 2) .., columns 64 (w % 2)
+// .., as 2 x 8 DMMA tiles of 16x8; acc[i][j] holds rows 16 i + g (+ 8)
+// and columns 8 j + 2 t (+ 1) of it.
+struct WarpTile {
+  int g, t, wr, wc;
+  __device__ WarpTile()
+      : g(threadIdx.x % 32 / 4), t(threadIdx.x % 4),
+        wr(threadIdx.x / 64 * 32), wc(threadIdx.x / 32 % 2 * 64) {}
+  // wholly above the diagonal of a diagonal tile (warps 1 and 3)
+  __device__ bool above() const { return wc > wr + 31; }
+};
+
+// The DMMA main loop of one 128x128 tile on NT threads: acc += A diag(d) B'
+// (SCALE) or A B' over k < K, where A's and B's 128 rows start at gA and
+// gB (leading dimension ld, k contiguous; rows >= nrA / nrB read as 0)
+// and d holds K scales.  A warp with `idle` set copies its share of every
+// chunk but skips the products.
+template <bool SCALE>
+__device__ __forceinline__ void dmma_tile(double* smem, const double* gA,
+                                          const double* gB, const double* d,
+                                          long long ld, int K, int nrA,
+                                          int nrB, bool vec, bool idle,
+                                          double (&acc)[2][8][4]) {
+  double* ring = smem;                              // DSTAGES x {A, B} x AT x DPK
+  double* dring = ring + DSTAGES * 2 * AT * DPK;    // DSTAGES x DKC
+  const WarpTile w;
+  const int nchunk = (K + DKC - 1) / DKC;
+  auto slot = [&](int c, int side) {
+    return ring + (2 * (c % DSTAGES) + side) * AT * DPK;
+  };
+  auto fetch = [&](int c) {
+    if (c < nchunk) {
+      const int k0 = c * DKC;
+      stage(slot(c, 0), DPK, gA + k0, ld, AT, DKC, nrA, K - k0, vec);
+      stage(slot(c, 1), DPK, gB + k0, ld, AT, DKC, nrB, K - k0, vec);
+      if (SCALE)
+        stage(dring + (c % DSTAGES) * DKC, DKC, d + k0, 0, 1, DKC, 1, K - k0,
+              vec);
+    }
+    cp_commit();
+  };
+  for (int c = 0; c < DSTAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < nchunk; ++c) {
+    cp_wait<DSTAGES - 2>();
+    __syncthreads();      // chunk c has landed; chunk c-1's slot is free
+    fetch(c + DSTAGES - 1);
+    if (idle) continue;
+    // lane (g, t) reads rows g (+ 8, + 16, ...) at k t (+ 4, ...): at the
+    // pitch DKC + 4 a half-warp's 16 lanes hit 16 distinct bank pairs
+    const double* a = slot(c, 0) + (w.wr + w.g) * DPK + w.t;
+    const double* b = slot(c, 1) + (w.wc + w.g) * DPK + w.t;
+    const double* dv = dring + (c % DSTAGES) * DKC + w.t;
+#pragma unroll
+    for (int kk = 0; kk < DKC; kk += MK) {
+      double af[2][MK / 2], bf[8][MK / 4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int q = 0; q < MK / 2; ++q) {
+          af[i][q] = a[(16 * i + 8 * (q % 2)) * DPK + kk + 4 * (q / 2)];
+          if (SCALE) af[i][q] *= dv[kk + 4 * (q / 2)];
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < MK / 4; ++q) bf[j][q] = b[8 * j * DPK + kk + 4 * q];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dmma(acc[i][j], af[i], bf[j]);
+    }
+  }
+  cp_wait<0>();
+}
+
+// f64 schur_assemble: the lower 128x128 tiles of S = P + Gt diag(dinv2) Gt'
+// into L, one block per (instance, tile), as schur_assemble_kernel lays
+// them out (and writes the same elements).
+__global__ void __launch_bounds__(NT, 1)
+schur_assemble_f64_kernel(const double* __restrict__ P, long long p_bs,
+                          const double* __restrict__ Gt, long long gt_bs,
+                          const double* __restrict__ dinv2, long long d_bs,
+                          double* __restrict__ L, int B, int n, int m,
+                          int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long long b = blockIdx.x % B;
+  int I, J;
+  tri_tile(blockIdx.x / B, I, J);
+  const int r0 = I * AT, c0 = J * AT;
+  const WarpTile w;
+  // the warps of the diagonal tile's part above the diagonal
+  const bool idle = I == J && w.above();
+  const double* G = Gt + b * gt_bs;
+  double acc[2][8][4] = {};
+  dmma_tile<true>(reinterpret_cast<double*>(smem_raw), G + (long long)r0 * m,
+                  G + (long long)c0 * m, dinv2 + b * d_bs, m, m,
+                  min(AT, n - r0), min(AT, n - c0), vec, idle, acc);
+  if (idle) return;
+  const double* Pb = P + b * p_bs;
+  double* Lb = L + b * (long long)n * n;
+  // n is a multiple of 64, so a pair of columns is inside or outside
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    double pv[2][8][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int row = r0 + w.wr + 16 * i + 8 * h + w.g;
+        const int col = c0 + w.wc + 8 * j + 2 * w.t;
+        const long long e = (long long)row * n + col;
+        const bool ok = row < n && col < n;
+        pv[h][j][0] = ok ? Pb[e] : 0.0;
+        pv[h][j][1] = ok ? Pb[e + 1] : 0.0;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int row = r0 + w.wr + 16 * i + 8 * h + w.g;
+        const int col = c0 + w.wc + 8 * j + 2 * w.t;
+        if (row >= n || col >= n) continue;
+        *reinterpret_cast<double2*>(Lb + (long long)row * n + col) =
+            make_double2(acc[i][j][2 * h] + pv[h][j][0],
+                         acc[i][j][2 * h + 1] + pv[h][j][1]);
+      }
   }
 }
 
@@ -893,21 +1071,46 @@ solve_few_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
 //                   in the outer panel): S[I, J] -= L21[I] L21[J]'
 //   trail_update    one block per (instance, 128x128 lower tile of the
 //                   trailing matrix): S -= L[:, panel] L[:, panel]', a
-//                   rank-256 update
+//                   rank-256 update (f64: two launches, the next panel's
+//                   column strip and the rest, see below)
 //   panel_finalize  one block per (instance, 64-row panel): zero the
 //                   strictly upper tiles, or NaN the whole instance
 // What bounds it: the trailing updates hold n^3/3 of the FLOPs.  Rank-64
 // updates would re-read and re-write the trailing matrix n/64 times
 // (about 45 GB at n = 10,240 in f64, more time than its FMAs); rank-256
 // updates do it n/256 times, and the 64-wide steps touch only the current
-// 256-wide panel.  trail_update stages 128x16 k-chunks of both operands
-// k-major in shared memory (registers to shared memory, double-buffered),
-// brings its 128x128 tile of S in by cp.async behind the products, and
-// runs 8x8 FP32 FMA micro-tiles in f32 (no TF32: the interior-point
-// method diverges on it) and DMMA (mma.sync m16n8k4 f64, IEEE double:
-// two m8n8k4 tiles that share B in one instruction, which ran faster than
-// m8n8k4 here) in f64, each warp a 32x64 piece of the tile.  The chain of n/64
-// diagonal factors, one block each, sets the latency that is left.
+// 256-wide panel.  In f32 trail_update stages 128x16 k-chunks of both
+// operands k-major in shared memory (registers to shared memory,
+// double-buffered), brings its 128x128 tile of S in by cp.async behind
+// the products, and runs 8x8 FP32 FMA micro-tiles (no TF32: the
+// interior-point method diverges on it).
+// In f64 trail_update is the assembly's DMMA main loop over the panel's
+// 256 columns of L (8 chunks of 32 through the same cp.async ring), and
+// its 128x128 tile of S is prefetched into L2 when the block starts and
+// read back in the epilogue, which leaves the ring all the shared memory.
+// The chain of n/64 diagonal factors, one block each, sets the latency
+// that is left; in f64 a lookahead hides most of it.  Each trailing
+// update is split in two: the next outer panel's 256 columns (all rows
+// below) on the launcher's main stream, and the rest of the trailing
+// matrix on a side stream.  The next panel's diag/l21/update chain then
+// runs on the main stream beside the bulk of the update.  Main has the
+// device's greatest stream priority and side its least, so a chain block
+// takes the first SM that frees up.  Events order the two: the rest of
+// update p waits for panel p's chain ("panel"); the next update's strip,
+// which overwrites columns that rest p updates, waits for rest p
+// ("rest").  The launcher forks from the caller's stream and joins back
+// to it before it returns (two streams and four events per device, made
+// at first use and used by one call at a time, under a mutex).  The
+// launcher issues the launches, streams, waits and records of its own
+// plan only where they equal those launch_config lists, so the plan
+// tests/test_torch_f64_factor.py walks and checks for races is the one
+// that runs.  No kernel waits on another: the order is the streams'.  On
+// an NVIDIA H100 80GB HBM3 at 700 W the f64 panel_factor at n = 10,240
+// takes 15.8-16.3 ms against a 5.3 ms bound (n^3/3 FLOP at the DMMA
+// peak), with 22 ms of kernels of which the lookahead overlaps 6.5-7.1
+// (chip_smoke.py's factor_profile).  Not measured apart: the rests'
+// tiles, each a pipeline fill and an epilogue around 8 chunks, and the
+// chain of the last outer panels, which has little left to overlap.
 //
 // panel_solve: one block per (instance, right-hand side, 64-row panel,
 // sweep), in one launch.  Each block takes a ticket from a counter in
@@ -927,9 +1130,8 @@ constexpr int TT = 128;      // trail_update output tile
 constexpr int TKC = 16;      // trail_update k-chunk
 constexpr int TP = TT + 4;   // trail_update k-major row pitch
 template <typename T> constexpr int SMEM_PTILE = 2 * BP * TPITCH<T> * sizeof(T);
-template <typename T> constexpr int TCP = TT + (sizeof(T) == 8 ? 8 : 4);  // C pitch
-template <typename T> constexpr int SMEM_TRAIL =
-    (2 * 2 * TKC * TP + TT * TCP<T>) * sizeof(T);
+constexpr int TCP = TT + 4;  // trail_update C tile pitch (f32)
+constexpr int SMEM_TRAIL = (2 * 2 * TKC * TP + TT * TCP) * 4;
 template <typename T> constexpr int SMEM_PSOLVE = 2 * BP * sizeof(T);
 
 // deq = 1/sqrt(max(diag S, 1e-30)), NaN stays NaN; NT rows per block.
@@ -1046,31 +1248,18 @@ panel_update_kernel(T* __restrict__ L, const int* __restrict__ bad, int n,
       sij[(long long)(tr + 16 * i) * n + tc + 16 * j] = -up[i][j];
 }
 
-// One m16n8k4 DMMA (f64, IEEE double): {c0, c1, c2, c3} += A B for a
-// 16x4 A, a 4x8 B and a 16x8 C.  Lane l, g = l / 4, t = l % 4, holds
-// A[g][t] (a0) and A[g + 8][t] (a1), B[t][g] (b), C[g][2t + {0, 1}] (c0,
-// c1) and C[g + 8][2t + {0, 1}] (c2, c3).
-__device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2,
-                                       double& c3, double a0, double a1,
-                                       double b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
-      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
-
-// S[r0.., c0..] -= L[r0.., k0:k0+kw] L[c0.., k0:k0+kw]' on one 128x128
-// lower tile of the trailing matrix, which starts at row and column t0.
+// f32: S[r0.., c0..] -= L[r0.., k0:k0+kw] L[c0.., k0:k0+kw]' on one
+// 128x128 lower tile of the trailing matrix, which starts at row and
+// column t0.
 template <typename T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 2 : 1)
+__global__ void __launch_bounds__(NT, 2)
 trail_update_kernel(T* __restrict__ L, const int* __restrict__ bad, int n,
                     int k0, int kw, int t0, int ntile) {
+  static_assert(sizeof(T) == 4, "f64 takes trail_update_f64_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);   // 2 stages x {A, B} x TKC x TP
   T* sC = sm + 2 * 2 * TKC * TP;            // the C tile, pitch TCP
-  constexpr int PC = TCP<T>;
+  constexpr int PC = TCP;
   const long long b = blockIdx.x / ntile;
   if (bad[b]) return;
   int I, J;
@@ -1114,103 +1303,120 @@ trail_update_kernel(T* __restrict__ L, const int* __restrict__ bad, int n,
   };
   const int nch = kw / TKC;
 
-  if constexpr (sizeof(T) == 8) {
-    // warp w: rows 32 (w / 2) .., columns 64 (w % 2) .. of the tile, as
-    // 2 x 8 DMMA tiles of 16x8
-    const int warp = tid / 32, lane = tid % 32;
-    const int wr = (warp / 2) * 32, wc = (warp % 2) * 64;
-    const int fr = lane / 4, fk = lane % 4;
-    double acc[4][8][2];
+  // thread (tr, tc): rows and columns tr*4 + i and 64 + tr*4 + i, i < 4
+  const int tr = tid / 16, tc = tid % 16;
+  float acc[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-    load(0);
-    store(0);
-    __syncthreads();
-    for (int c = 0; c < nch; ++c) {
-      if (c + 1 < nch) load(c + 1);
-      const double* a = sm + 2 * (c & 1) * TKC * TP;
-      const double* bb = a + TKC * TP;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) load(c + 1);
+    const float* a = sm + 2 * (c & 1) * TKC * TP;
+    const float* bb = a + TKC * TP;
 #pragma unroll
-      for (int ks = 0; ks < TKC; ks += 4) {
-        double av[4], bv[8];
+    for (int k = 0; k < TKC; ++k) {
+      float av[8], bv[8];
+      ld4(a + k * TP + tr * 4, av);
+      ld4(a + k * TP + 64 + tr * 4, av + 4);
+      ld4(bb + k * TP + tc * 4, bv);
+      ld4(bb + k * TP + 64 + tc * 4, bv + 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = a[(ks + fk) * TP + wr + i * 8 + fr];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = bb[(ks + fk) * TP + wc + j * 8 + fr];
-#pragma unroll
-        for (int i = 0; i < 4; i += 2)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            dmma16(acc[i][j][0], acc[i][j][1], acc[i + 1][j][0],
-                   acc[i + 1][j][1], av[i], av[i + 1], bv[j]);
-      }
-      if (c + 1 < nch) store((c + 1) & 1);
-      __syncthreads();
+        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
     }
-    cp_wait<0>();
+    if (c + 1 < nch) store((c + 1) & 1);
     __syncthreads();
+  }
+  cp_wait<0>();
+  __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = wr + i * 8 + fr, row = r0 + rl;
-      if (row >= n) continue;
+  for (int i = 0; i < 8; ++i) {
+    const int rl = (i < 4 ? 0 : 64) + tr * 4 + i % 4, row = r0 + rl;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = (j < 4 ? 0 : 64) + tc * 4 + j % 4, col = c0 + cl;
+      if (col >= n || (diag && row < col)) continue;
+      Lb[(long long)row * n + col] = sC[rl * PC + cl] - acc[i][j];
+    }
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// f64: the same update through the DMMA main loop.  The tile is one of
+// `ntile` lower 128x128 tiles of the trailing matrix at row and column t0:
+// with `strip`, those in its first two columns of tiles (the next outer
+// panel's 256 columns, all rows below), else all of its triangle.  The C
+// tile is prefetched into L2 when the block starts and read back in the
+// epilogue, half a warp tile at a time (its loads issued together).
+__global__ void __launch_bounds__(NT, 1)
+trail_update_f64_kernel(double* __restrict__ L, const int* __restrict__ bad,
+                        int n, int k0, int kw, int t0, int ntile,
+                        int strip) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const long long b = blockIdx.x / ntile;
+  if (bad[b]) return;
+  const int tile = blockIdx.x % ntile;
+  int I, J;
+  if (strip) {
+    const int tt = (n - t0 + TT - 1) / TT;   // row tiles: J = 0, then 1
+    J = tile < tt ? 0 : 1;
+    I = tile - J * (tt - 1);
+  } else {
+    tri_tile(tile, I, J);
+  }
+  const int r0 = t0 + I * TT, c0 = t0 + J * TT;
+  const bool diag = I == J;
+  double* Lb = L + b * (long long)n * n;
+  for (int idx = threadIdx.x; idx < TT * 8; idx += NT) {
+    const int row = r0 + idx / 8, col = c0 + (idx % 8) * 16;
+    if (row < n && col < n) prefetch_l2(Lb + (long long)row * n + col);
+  }
+  const WarpTile w;
+  const bool idle = diag && w.above();
+  double acc[2][8][4] = {};
+  dmma_tile<false>(reinterpret_cast<double*>(smem_raw),
+                   Lb + (long long)r0 * n + k0, Lb + (long long)c0 * n + k0,
+                   nullptr, n, kw, min(TT, n - r0), min(TT, n - c0), true,
+                   idle, acc);
+  if (idle) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    double2 cv[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int cl = wc + j * 8 + fk * 2, col = c0 + cl;
-        if (col >= n || (diag && row < col)) continue;
-        const double* cs = sC + rl * PC + cl;
+        const int row = r0 + w.wr + 16 * i + 8 * h + w.g;
+        const int col = c0 + w.wc + 8 * j + 2 * w.t;
+        const bool ok = row < n && col < n && !(diag && row < col);
+        cv[h][j] = ok ? *reinterpret_cast<const double2*>(
+                            Lb + (long long)row * n + col)
+                      : make_double2(0.0, 0.0);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int row = r0 + w.wr + 16 * i + 8 * h + w.g;
+        const int col = c0 + w.wc + 8 * j + 2 * w.t;
+        if (row >= n || col >= n || (diag && row < col)) continue;
         double* p = Lb + (long long)row * n + col;
         if (!diag || row > col)
           *reinterpret_cast<double2*>(p) =
-              make_double2(cs[0] - acc[i][j][0], cs[1] - acc[i][j][1]);
+              make_double2(cv[h][j].x - acc[i][j][2 * h],
+                           cv[h][j].y - acc[i][j][2 * h + 1]);
         else
-          p[0] = cs[0] - acc[i][j][0];
+          p[0] = cv[h][j].x - acc[i][j][2 * h];
       }
-    }
-  } else {
-    // thread (tr, tc): rows and columns tr*4 + i and 64 + tr*4 + i, i < 4
-    const int tr = tid / 16, tc = tid % 16;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    load(0);
-    store(0);
-    __syncthreads();
-    for (int c = 0; c < nch; ++c) {
-      if (c + 1 < nch) load(c + 1);
-      const float* a = sm + 2 * (c & 1) * TKC * TP;
-      const float* bb = a + TKC * TP;
-#pragma unroll
-      for (int k = 0; k < TKC; ++k) {
-        float av[8], bv[8];
-        ld4(a + k * TP + tr * 4, av);
-        ld4(a + k * TP + 64 + tr * 4, av + 4);
-        ld4(bb + k * TP + tc * 4, bv);
-        ld4(bb + k * TP + 64 + tc * 4, bv + 4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
-      }
-      if (c + 1 < nch) store((c + 1) & 1);
-      __syncthreads();
-    }
-    cp_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int rl = (i < 4 ? 0 : 64) + tr * 4 + i % 4, row = r0 + rl;
-      if (row >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int cl = (j < 4 ? 0 : 64) + tc * 4 + j % 4, col = c0 + cl;
-        if (col >= n || (diag && row < col)) continue;
-        Lb[(long long)row * n + col] = sC[rl * PC + cl] - acc[i][j];
-      }
-    }
   }
 }
 
@@ -1388,14 +1594,24 @@ int launch_schur_assemble(const void* P, long long p_bs, const void* Gt,
                           void* L, int B, int n, int m, int vec, int smem,
                           void* stream) {
   if (B == 0) return 0;
-  if (smem != SMEM_ASM<T>) return ERR_LAYOUT;
-  cudaError_t e = set_smem(schur_assemble_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
   const int t = (n + AT - 1) / AT;
   const long long grid = (long long)B * (t * (t + 1) / 2);
-  schur_assemble_kernel<T><<<(unsigned)grid, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)P, p_bs, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs, (T*)L,
-      B, n, m, vec);
+  if constexpr (sizeof(T) == 8) {
+    if (smem != SMEM_DMMA) return ERR_LAYOUT;
+    cudaError_t e = set_smem(schur_assemble_f64_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    schur_assemble_f64_kernel<<<(unsigned)grid, NT, smem,
+                                (cudaStream_t)stream>>>(
+        (const T*)P, p_bs, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs, (T*)L,
+        B, n, m, vec);
+  } else {
+    if (smem != SMEM_ASM<T>) return ERR_LAYOUT;
+    cudaError_t e = set_smem(schur_assemble_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    schur_assemble_kernel<T><<<(unsigned)grid, NT, smem, (cudaStream_t)stream>>>(
+        (const T*)P, p_bs, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs, (T*)L,
+        B, n, m, vec);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1433,77 +1649,224 @@ int launch_chol_solve(const void* L, const void* Dinv, const void* Bm,
   return (int)cudaGetLastError();
 }
 
-#define CHECK_LAUNCH()                                   \
-  do {                                                   \
-    cudaError_t err_ = cudaGetLastError();               \
-    if (err_ != cudaSuccess) return (int)err_;           \
-  } while (0)
+// One launch of panel_factor, as ops/fused_chol.py's plan_codes encodes
+// an entry of launch_config: the kernel, its grid and dynamic shared
+// memory, its stream, the events it waits for before it starts and
+// records when it ends (bit masks), and its arguments (panel_diag and
+// panel_l21: jp; panel_update: jp, cols; trail_update: k0, rank, t0,
+// col0, col1, strip; zero past them).
+enum { K_DEQ, K_SCALE, K_DIAG, K_L21, K_UPDATE, K_TRAIL, K_FINALIZE };
+enum { S_CALLER, S_MAIN, S_SIDE };
+enum { E_FORK = 1, E_PANEL = 2, E_REST = 4, E_JOIN = 8 };
+constexpr int NEVENT = 4;
+struct Step {
+  int kernel, grid, smem, stream, waits, records, arg[6];
+};
+static_assert(sizeof(Step) == 12 * sizeof(int), "a Step is 12 ints");
 
-// The small-batch factor after schur_assemble: the panel loop on the
-// host, one launch per step, in the order ops/fused_chol.py's
-// launch_config lists them (nlaunch of them; ERR_LAYOUT otherwise).
+// panel_factor's launches after schur_assemble, in issue order.  f32 runs
+// on the caller's stream.  f64 splits each trailing update into the next
+// outer panel's strip and the rest, and for n > 2 NB forks: every launch
+// on `main` but the rests, on `side`.  The rest of update p waits for
+// panel p's chain ("panel"); the next strip, which overwrites columns
+// that rest p updates, and the finalize wait for the latest rest
+// ("rest"); the first launch waits for the caller's stream ("fork"), and
+// the caller's stream for the last ("join").
 template <typename T>
-int launch_panel_factor(void* L, void* Dinv, void* deq, void* bad, int B,
-                        int n, int nb, int smem_diag, int smem_tile,
-                        int smem_trail, int nlaunch, void* stream) {
-  if (B == 0) return 0;
-  if (nb != NB || smem_diag != SMEM_FAC<T> || smem_tile != SMEM_PTILE<T> ||
-      smem_trail != SMEM_TRAIL<T>)
-    return ERR_LAYOUT;
+std::vector<Step> panel_factor_plan(int B, int n, bool equilibrate) {
+  constexpr bool f64 = sizeof(T) == 8;
   const int npan = n / BP, pw = NB / BP;
-  int count = (deq ? 2 : 0) + 1;
-  for (int p0 = 0; p0 < npan; p0 += pw) {
-    const int pend = min(p0 + pw, npan) - 1;
-    for (int jp = p0; jp <= pend; ++jp)
-      count += 1 + (jp < npan - 1) + (jp < pend);
-    count += pend < npan - 1;
+  const bool forked = f64 && n > 2 * NB;   // else no update has a rest
+  const int ms = forked ? S_MAIN : S_CALLER;
+  std::vector<Step> out;
+  auto add = [&](int kernel, int grid, int smem, int stream, int waits,
+                 std::initializer_list<int> args) {
+    Step st{kernel, grid, smem, stream, waits, 0, {}};
+    int i = 0;
+    for (int a : args) st.arg[i++] = a;
+    out.push_back(st);
+  };
+  int fork = forked ? E_FORK : 0;
+  if (equilibrate) {
+    add(K_DEQ, B * ((n + NT - 1) / NT), 0, ms, fork, {});
+    add(K_SCALE, B * (npan * (npan + 1) / 2), 0, ms, 0, {});
+    fork = 0;
   }
-  if (count != nlaunch) return ERR_LAYOUT;
-  cudaError_t e;
-  if ((e = set_smem(panel_diag_kernel<T>, smem_diag)) != cudaSuccess ||
-      (e = set_smem(panel_l21_kernel<T>, smem_tile)) != cudaSuccess ||
-      (e = set_smem(panel_update_kernel<T>, smem_tile)) != cudaSuccess ||
-      (e = set_smem(trail_update_kernel<T>, smem_trail)) != cudaSuccess)
-    return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  T* Lp = (T*)L;
-  T* Dp = (T*)Dinv;
-  int* bp = (int*)bad;
-  if (deq) {
-    const int nblk = (n + NT - 1) / NT, nt = npan * (npan + 1) / 2;
-    panel_deq_kernel<T><<<B * nblk, NT, 0, st>>>(Lp, (T*)deq, n, nblk);
-    CHECK_LAUNCH();
-    panel_scale_kernel<T><<<B * nt, NT, 0, st>>>(Lp, (const T*)deq, n, nt);
-    CHECK_LAUNCH();
-  }
+  bool rest_pending = false;   // a rest issued and not yet waited for
   for (int p0 = 0; p0 < npan; p0 += pw) {
     const int pend = min(p0 + pw, npan) - 1;
     for (int jp = p0; jp <= pend; ++jp) {
-      panel_diag_kernel<T><<<B, NT, smem_diag, st>>>(Lp, Dp, bp, n, jp);
-      CHECK_LAUNCH();
       const int rows = npan - 1 - jp, cols = pend - jp;
-      if (rows) {
-        panel_l21_kernel<T><<<B * rows, NT, smem_tile, st>>>(Lp, Dp, bp, n,
-                                                            jp, rows);
-        CHECK_LAUNCH();
-      }
-      if (cols) {
-        panel_update_kernel<T><<<B * rows * cols, NT, smem_tile, st>>>(
-            Lp, bp, n, jp, rows, cols);
-        CHECK_LAUNCH();
-      }
+      add(K_DIAG, B, SMEM_FAC<T>, ms, fork, {jp});
+      fork = 0;
+      if (rows) add(K_L21, B * rows, SMEM_PTILE<T>, ms, 0, {jp});
+      if (cols) add(K_UPDATE, B * rows * cols, SMEM_PTILE<T>, ms, 0, {jp, cols});
     }
-    if (pend < npan - 1) {
-      const int t0 = (pend + 1) * BP, tt = (n - t0 + TT - 1) / TT;
-      const int ntile = tt * (tt + 1) / 2;
-      trail_update_kernel<T><<<B * ntile, NT, smem_trail, st>>>(
-          Lp, bp, n, p0 * BP, t0 - p0 * BP, t0, ntile);
-      CHECK_LAUNCH();
+    if (pend == npan - 1) continue;
+    // the trailing update of rank 256 from columns k0 .. t0
+    const int t0 = (pend + 1) * BP, k0 = p0 * BP;
+    const int tt = (n - t0 + TT - 1) / TT;
+    if (!f64) {
+      add(K_TRAIL, B * (tt * (tt + 1) / 2), SMEM_TRAIL, S_CALLER, 0,
+          {k0, t0 - k0, t0, t0, n, 0});
+      continue;
     }
+    const bool rest = t0 + NB < n;
+    if (rest) out.back().records |= E_PANEL;
+    add(K_TRAIL, B * (min(NB, n - t0) > TT ? 2 * tt - 1 : tt), SMEM_DMMA, ms,
+        rest_pending ? E_REST : 0, {k0, t0 - k0, t0, t0, min(t0 + NB, n), 1});
+    rest_pending = rest;
+    if (!rest) continue;
+    const int r0 = t0 + NB, tr = (n - r0 + TT - 1) / TT;
+    add(K_TRAIL, B * (tr * (tr + 1) / 2), SMEM_DMMA, S_SIDE, E_PANEL,
+        {k0, t0 - k0, r0, r0, n, 0});
+    out.back().records |= E_REST;
   }
-  panel_finalize_kernel<T><<<B * npan, NT, 0, st>>>(Lp, Dp, bp, n);
-  CHECK_LAUNCH();
-  return 0;
+  add(K_FINALIZE, B * npan, 0, ms, rest_pending ? E_REST : 0, {});
+  if (forked) out.back().records |= E_JOIN;
+  return out;
+}
+
+// The f64 lookahead's streams and events on one device, made at first
+// use: `main` at the device's greatest stream priority (the panel chain),
+// `side` at its least (the rests).  Every call on any device uses them
+// under lookahead_mutex, from the fork to the join: two host threads
+// (ctypes lets go of the GIL) would otherwise interleave their records
+// and waits on the same events.
+struct Lookahead {
+  cudaStream_t main = nullptr, side = nullptr;
+  cudaEvent_t ev[NEVENT];   // fork, panel, rest, join
+};
+
+constexpr int MAX_DEVICES = 64;
+
+std::mutex lookahead_mutex;
+
+cudaError_t lookahead_of_current_device(Lookahead** out) {
+  static Lookahead table[MAX_DEVICES];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Lookahead& la = table[dev];
+  if (!la.main) {
+    int least, greatest;
+    cudaStream_t m, sd;
+    if ((e = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess ||
+        (e = cudaStreamCreateWithPriority(&m, cudaStreamNonBlocking, greatest)) !=
+            cudaSuccess ||
+        (e = cudaStreamCreateWithPriority(&sd, cudaStreamNonBlocking, least)) !=
+            cudaSuccess)
+      return e;
+    for (cudaEvent_t& ev : la.ev)
+      if ((e = cudaEventCreateWithFlags(&ev, cudaEventDisableTiming)) != cudaSuccess)
+        return e;
+    la.side = sd;
+    la.main = m;   // last: the entry is complete
+  }
+  *out = &la;
+  return cudaSuccess;
+}
+
+// The small-batch factor after schur_assemble: panel_factor_plan's
+// launches, one at a time from the host.  `plan` holds nlaunch Steps as
+// ops/fused_chol.py encodes launch_config's; ERR_LAYOUT, before anything
+// is launched, unless they equal this source's plan in every field,
+// streams, waits and records included.  A forked plan is joined back into
+// the caller's stream before the return, also when a launch fails.
+template <typename T>
+int launch_panel_factor(void* L, void* Dinv, void* deq, void* bad, int B,
+                        int n, const int* plan, int nlaunch, void* stream) {
+  constexpr bool f64 = sizeof(T) == 8;
+  if (B == 0) return 0;
+  const std::vector<Step> steps = panel_factor_plan<T>(B, n, deq != nullptr);
+  if (nlaunch != (int)steps.size() ||
+      std::memcmp(steps.data(), plan, steps.size() * sizeof(Step)) != 0)
+    return ERR_LAYOUT;
+  cudaError_t e;
+  if ((e = set_smem(panel_diag_kernel<T>, SMEM_FAC<T>)) != cudaSuccess ||
+      (e = set_smem(panel_l21_kernel<T>, SMEM_PTILE<T>)) != cudaSuccess ||
+      (e = set_smem(panel_update_kernel<T>, SMEM_PTILE<T>)) != cudaSuccess)
+    return (int)e;
+  if constexpr (f64)
+    e = set_smem(trail_update_f64_kernel, SMEM_DMMA);
+  else
+    e = set_smem(trail_update_kernel<T>, SMEM_TRAIL);
+  if (e != cudaSuccess) return (int)e;
+  const bool fork = steps.front().waits & E_FORK;
+  std::unique_lock<std::mutex> lock(lookahead_mutex, std::defer_lock);
+  Lookahead* la = nullptr;
+  cudaStream_t caller = (cudaStream_t)stream;
+  if (fork) {
+    lock.lock();
+    if ((e = lookahead_of_current_device(&la)) != cudaSuccess ||
+        (e = cudaEventRecord(la->ev[0], caller)) != cudaSuccess)
+      return (int)e;
+  }
+  const cudaStream_t streams[3] = {caller, la ? la->main : caller,
+                                   la ? la->side : caller};
+  T* Lp = (T*)L;
+  T* Dp = (T*)Dinv;
+  int* bp = (int*)bad;
+  const int npan = n / BP;
+  auto run = [&]() -> cudaError_t {
+    cudaError_t err;
+    for (const Step& s : steps) {
+      const cudaStream_t st = streams[s.stream];
+      for (int k = 0; k < NEVENT; ++k)
+        if ((s.waits >> k & 1) &&
+            (err = cudaStreamWaitEvent(st, la->ev[k], 0)) != cudaSuccess)
+          return err;
+      const int per = s.grid / B;   // blocks per instance
+      switch (s.kernel) {
+        case K_DEQ:
+          panel_deq_kernel<T><<<s.grid, NT, 0, st>>>(Lp, (T*)deq, n, per);
+          break;
+        case K_SCALE:
+          panel_scale_kernel<T><<<s.grid, NT, 0, st>>>(Lp, (const T*)deq, n, per);
+          break;
+        case K_DIAG:
+          panel_diag_kernel<T><<<s.grid, NT, s.smem, st>>>(Lp, Dp, bp, n, s.arg[0]);
+          break;
+        case K_L21:
+          panel_l21_kernel<T><<<s.grid, NT, s.smem, st>>>(Lp, Dp, bp, n, s.arg[0], per);
+          break;
+        case K_UPDATE:
+          panel_update_kernel<T><<<s.grid, NT, s.smem, st>>>(
+              Lp, bp, n, s.arg[0], npan - 1 - s.arg[0], s.arg[1]);
+          break;
+        case K_TRAIL:
+          if constexpr (f64)
+            trail_update_f64_kernel<<<s.grid, NT, s.smem, st>>>(
+                Lp, bp, n, s.arg[0], s.arg[1], s.arg[2], per, s.arg[5]);
+          else
+            trail_update_kernel<T><<<s.grid, NT, s.smem, st>>>(
+                Lp, bp, n, s.arg[0], s.arg[1], s.arg[2], per);
+          break;
+        case K_FINALIZE:
+          panel_finalize_kernel<T><<<s.grid, NT, 0, st>>>(Lp, Dp, bp, n);
+          break;
+      }
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      for (int k = 0; k < NEVENT; ++k)
+        if ((s.records >> k & 1) &&
+            (err = cudaEventRecord(la->ev[k], st)) != cudaSuccess)
+          return err;
+    }
+    return cudaSuccess;
+  };
+  e = run();
+  if (!fork) return (int)e;
+  // the join; after a failed launch, first everything issued on side, so
+  // that nothing of this call runs on after the caller's stream moves on
+  cudaError_t j = cudaSuccess;
+  if (e != cudaSuccess) {
+    j = cudaEventRecord(la->ev[2], la->side);
+    if (j == cudaSuccess) j = cudaStreamWaitEvent(la->main, la->ev[2], 0);
+    if (j == cudaSuccess) j = cudaEventRecord(la->ev[3], la->main);
+  }
+  if (j == cudaSuccess) j = cudaStreamWaitEvent(caller, la->ev[3], 0);
+  return (int)(e != cudaSuccess ? e : j);
 }
 
 template <typename T>
@@ -1543,10 +1906,9 @@ extern "C" {
                                 stream);                                      \
   }                                                                           \
   int panel_factor_##SFX(void* L, void* Dinv, void* deq, void* bad, int B,    \
-                         int n, int nb, int smem_diag, int smem_tile,         \
-                         int smem_trail, int nlaunch, void* stream) {         \
-    return launch_panel_factor<T>(L, Dinv, deq, bad, B, n, nb, smem_diag,     \
-                                  smem_tile, smem_trail, nlaunch, stream);    \
+                         int n, const int* plan, int nlaunch, void* stream) { \
+    return launch_panel_factor<T>(L, Dinv, deq, bad, B, n, plan, nlaunch,     \
+                                  stream);                                    \
   }                                                                           \
   int panel_solve_##SFX(const void* L, const void* Dinv, const void* Bm,      \
                         long long b_bs, void* X, int B, int n, int nrhs,      \

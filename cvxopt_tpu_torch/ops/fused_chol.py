@@ -28,7 +28,11 @@ wrapper counts its calls that launch on the card in
 A factor call launches schur_assemble and then either schur_factor (one
 block per instance) or, for a batch much smaller than the card's SM
 count, panel_factor: the same factor as a host loop of launches that
-each spread one panel step over the grid.  A solve call launches
+each spread one panel step over the grid.  In f64 schur_assemble and
+panel_factor's trailing updates run on the FP64 tensor cores, and
+panel_factor overlaps the next panel's steps with the bulk of each
+trailing update on a second stream (a lookahead; it joins the caller's
+stream before the call returns).  A solve call launches
 solve_few or solve_many by the number of right-hand sides, or, for few
 (instance, right-hand side) pairs, panel_solve: one block per (pair,
 panel, sweep).  `launch_counts` also counts the calls of each of the two
@@ -43,6 +47,7 @@ singular KKT system.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -121,7 +126,21 @@ PANEL_FACTOR_MIN_N = 256
 PANEL_SOLVE_MIN_N = 512
 PANEL_NB = 256    # panel_factor: outer panel width, the trailing updates' rank
 TRAIL_TILE = 128  # panel_factor: trail_update's output tile
-TRAIL_KC = 16     # panel_factor: trail_update's k-chunk
+TRAIL_KC = 16     # panel_factor: trail_update's k-chunk (f32)
+# f64: schur_assemble and trail_update run on the FP64 tensor cores
+# (mma.sync m16n8k8) through one main loop: k-chunks of DMMA_KC copied by
+# a DMMA_STAGES-deep cp.async ring, rows at a pitch of DMMA_KC + 4 (the
+# layout csrc/fused_chol.cu fixes; launch_config reports it)
+DMMA_KC = 32
+DMMA_STAGES = 3
+DMMA_SHAPE = "m16n8k8"
+
+
+def _dmma_smem():
+    """Shared memory of the f64 DMMA kernels, in bytes: the ring of both
+    operands' chunks and of dinv2's."""
+    return (DMMA_STAGES * 2 * ASM_TILE * (DMMA_KC + 4)
+            + DMMA_STAGES * DMMA_KC) * 8
 
 
 def small_batch(kind, B, n, k, sms):
@@ -135,45 +154,144 @@ def small_batch(kind, B, n, k, sms):
 def _panel_smem(esize):
     """Shared memory of panel_factor's kernels that use it, in bytes."""
     tile_words = BP * (BP + 16 // esize)
+    trail = _dmma_smem() if esize == 8 else \
+        (2 * 2 * TRAIL_KC * (TRAIL_TILE + 4)
+         + TRAIL_TILE * (TRAIL_TILE + 4)) * esize
     return dict(diag=(3 * tile_words + BP) * esize,
-                tile=2 * tile_words * esize,
-                trail=(2 * 2 * TRAIL_KC * (TRAIL_TILE + 4)
-                       + TRAIL_TILE * (TRAIL_TILE + (8 if esize == 8
-                                                     else 4))) * esize)
+                tile=2 * tile_words * esize, trail=trail)
 
 
 def _panel_factor_plan(B, n, esize, equilibrate):
     """panel_factor's launches after schur_assemble, in the order the C
-    launcher makes them (see csrc/fused_chol.cu)."""
+    launcher makes them (see csrc/fused_chol.cu; it launches nothing
+    unless its own plan equals this one in every field of `plan_codes`).
+
+    In f64 each trailing update is split into the next outer panel's
+    column strip (`part` "next", on stream "main") and the rest of the
+    trailing matrix ("rest", on "side"), which runs beside the next
+    panel's chain (a lookahead).  Each f64 launch then lists the events
+    it waits for before it starts (`waits`) and records when it ends
+    (`records`), in host order: a wait is on the latest record of that
+    event issued before it, as in CUDA.  "fork" is recorded on the
+    caller's stream after schur_assemble; the caller's stream waits for
+    "join".  With n <= 2 PANEL_NB no update has a rest, so there is
+    nothing to overlap: every launch runs on the caller's stream
+    ("caller"), with no fork and no join.  An f64 trail_update updates
+    the lower part of columns col0 .. col1 - 1, rows col0 .. n - 1, of L
+    by the rank-`rank` product of columns k0 .. k0 + rank - 1; an f32 one
+    the whole trailing triangle from row and column t0."""
     npan, pw = n // BP, PANEL_NB // BP
     sm = _panel_smem(esize)
-    diag, tile, trail = sm["diag"], sm["tile"], sm["trail"]
+    lookahead = esize == 8
+    forked = lookahead and n > 2 * PANEL_NB
     out = []
+
+    def launch(kernel, grid, tile, smem, stream="main", waits=(), **kw):
+        c = dict(kernel=kernel, grid=grid, tile=tile, smem=smem)
+        if lookahead:
+            c.update(stream=stream if forked else "caller",
+                     waits=list(waits), records=[])
+        out.append(dict(c, **kw))
+
+    fork = ["fork"] if forked else []
     if equilibrate:
-        out += [dict(kernel="panel_deq", grid=B * -(-n // 256), tile=256,
-                     smem=0),
-                dict(kernel="panel_scale", grid=B * npan * (npan + 1) // 2,
-                     tile=BP, smem=0)]
+        launch("panel_deq", B * -(-n // 256), 256, 0, waits=fork)
+        launch("panel_scale", B * npan * (npan + 1) // 2, BP, 0)
+        fork = []
+    rest_pending = False
     for p0 in range(0, npan, pw):
         pend = min(p0 + pw, npan) - 1
         for jp in range(p0, pend + 1):
             rows, cols = npan - 1 - jp, pend - jp
-            out.append(dict(kernel="panel_diag", grid=B, tile=BP,
-                            smem=diag, panel=jp))
+            launch("panel_diag", B, BP, sm["diag"], waits=fork, panel=jp)
+            fork = []
             if rows:
-                out.append(dict(kernel="panel_l21", grid=B * rows, tile=BP,
-                                smem=tile, panel=jp))
+                launch("panel_l21", B * rows, BP, sm["tile"], panel=jp)
             if cols:
-                out.append(dict(kernel="panel_update", grid=B * rows * cols,
-                                tile=BP, smem=tile, panel=jp, cols=cols))
-        if pend < npan - 1:
-            t0 = (pend + 1) * BP
-            tt = -(-(n - t0) // TRAIL_TILE)
-            out.append(dict(kernel="trail_update", grid=B * tt * (tt + 1) // 2,
-                            tile=TRAIL_TILE, smem=trail, k0=p0 * BP,
-                            rank=t0 - p0 * BP, t0=t0))
-    out.append(dict(kernel="panel_finalize", grid=B * npan, tile=BP, smem=0))
+                launch("panel_update", B * rows * cols, BP, sm["tile"],
+                       panel=jp, cols=cols)
+        if pend == npan - 1:
+            continue
+        t0, k0 = (pend + 1) * BP, p0 * BP
+        tt = -(-(n - t0) // TRAIL_TILE)
+        if not lookahead:
+            launch("trail_update", B * tt * (tt + 1) // 2, TRAIL_TILE,
+                   sm["trail"], k0=k0, rank=t0 - k0, t0=t0)
+            continue
+        rest = t0 + PANEL_NB < n
+        if rest:
+            out[-1]["records"].append("panel")
+        launch("trail_update",
+               B * (2 * tt - 1 if min(PANEL_NB, n - t0) > TRAIL_TILE
+                    else tt),
+               TRAIL_TILE, sm["trail"], waits=["rest"] if rest_pending
+               else [], part="next", k0=k0, rank=t0 - k0, t0=t0, col0=t0,
+               col1=min(t0 + PANEL_NB, n))
+        rest_pending = rest
+        if rest:
+            r0 = t0 + PANEL_NB
+            tr = -(-(n - r0) // TRAIL_TILE)
+            launch("trail_update", B * tr * (tr + 1) // 2, TRAIL_TILE,
+                   sm["trail"], stream="side", waits=["panel"], part="rest",
+                   k0=k0, rank=t0 - k0, t0=r0, col0=r0, col1=n)
+            out[-1]["records"].append("rest")
+    launch("panel_finalize", B * npan, BP, 0,
+           waits=["rest"] if rest_pending else [])
+    if forked:
+        out[-1]["records"].append("join")
     return out
+
+
+# plan_codes: panel_factor's kernels, streams and events by their index,
+# as csrc/fused_chol.cu numbers them
+PLAN_KERNELS = ("panel_deq", "panel_scale", "panel_diag", "panel_l21",
+                "panel_update", "trail_update", "panel_finalize")
+PLAN_STREAMS = ("caller", "main", "side")
+PLAN_EVENTS = ("fork", "panel", "rest", "join")
+PLAN_INTS = 12    # ints per launch
+
+
+def plan_codes(plan, n):
+    """panel_factor's launches (launch_config's entries after
+    schur_assemble) as the C launcher compares them with its own plan
+    before it launches anything: PLAN_INTS ints a launch, the kernel's
+    index in PLAN_KERNELS, grid, shared memory, stream (PLAN_STREAMS;
+    an f32 plan runs on the caller's), the events waited for and
+    recorded (bit i: PLAN_EVENTS[i]), then the arguments, zero-padded:
+    panel_diag and panel_l21 the panel; panel_update the panel and
+    `cols`; trail_update k0, rank, t0, the columns col0 .. col1 it
+    updates (an f32 one t0 .. n) and 1 for the next outer panel's strip
+    (`part` "next")."""
+    def mask(events):
+        return sum(1 << PLAN_EVENTS.index(e) for e in events)
+
+    out = []
+    for c in plan:
+        k = c["kernel"]
+        if k in ("panel_diag", "panel_l21"):
+            args = [c["panel"]]
+        elif k == "panel_update":
+            args = [c["panel"], c["cols"]]
+        elif k == "trail_update":
+            args = [c["k0"], c["rank"], c["t0"], c.get("col0", c["t0"]),
+                    c.get("col1", n), int(c.get("part") == "next")]
+        else:
+            args = []
+        out += [PLAN_KERNELS.index(k), c["grid"], c["smem"],
+                PLAN_STREAMS.index(c.get("stream", "caller")),
+                mask(c.get("waits", ())), mask(c.get("records", ())),
+                *args] + [0] * (PLAN_INTS - 6 - len(args))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _panel_factor_codes(B, n, esize, equilibrate):
+    """plan_codes of panel_factor's plan as a C int array, and its number
+    of launches; cached, since encoding the 517 launches at n = 10,240
+    takes more host time per call than the panel chain's first steps."""
+    plan = _panel_factor_plan(B, n, esize, equilibrate)
+    codes = plan_codes(plan, n)
+    return (ctypes.c_int * len(codes))(*codes), len(plan)
 
 
 def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
@@ -190,14 +308,20 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
     in bytes.  No block's shared memory depends on n: a block holds one
     panel, never a whole right-hand side.
 
+    In f64 the assembly runs on the FP64 tensor cores and its entry also
+    gives its k-chunk (`kc`), ring depth (`stages`) and mma shape
+    (`mma`).
+
     `sms` is the device's SM count (0, the default: one block per
     instance at any B).  Where `small_batch` holds, a factor is
     schur_assemble and then panel_factor's launches, each with its
     panel (`panel`), the column tiles left in its outer panel (`cols`),
     or the trailing update's first column (`k0`), rank and first
     trailing row (`t0`); with `equilibrate`, two launches first compute
-    deq and scale S.  A solve is one panel_solve launch: one block per
-    (instance, right-hand side, 64-row panel, sweep).
+    deq and scale S.  In f64 each launch also names its stream and the
+    events it waits for and records, and each trailing update is split
+    in two (`_panel_factor_plan`).  A solve is one panel_solve launch: one
+    block per (instance, right-hand side, 64-row panel, sweep).
 
     Raises ValueError when n is not a multiple of BP, or a block needs
     more than `smem` bytes (the device's opt-in shared memory per
@@ -207,11 +331,15 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
     tile_words = BP * (BP + vw)      # a 64x64 tile with its row pad
     if kind == "factor":
         t = -(-n // ASM_TILE)
+        if esize == 8:
+            asm = dict(smem=_dmma_smem(), kc=DMMA_KC, stages=DMMA_STAGES,
+                       mma=DMMA_SHAPE)
+        else:
+            asm = dict(smem=(ASM_STAGES * 2 * ASM_TILE * (ASM_KC + vw)
+                             + 2 * ASM_KC * (ASM_TILE + vw)
+                             + ASM_STAGES * ASM_KC) * esize)
         out = [dict(kernel="schur_assemble", grid=B * (t * (t + 1) // 2),
-                    tile=ASM_TILE,
-                    smem=(ASM_STAGES * 2 * ASM_TILE * (ASM_KC + vw)
-                          + 2 * ASM_KC * (ASM_TILE + vw)
-                          + ASM_STAGES * ASM_KC) * esize)]
+                    tile=ASM_TILE, **asm)]
         if small_batch(kind, B, n, 1, sms):
             out += _panel_factor_plan(B, n, esize, equilibrate)
         else:
@@ -260,7 +388,8 @@ def _kernels():
             f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, ci, vp]
             f.restype = ci
             f = getattr(lib, "panel_factor_" + sfx)
-            f.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+            f.argtypes = [vp, vp, vp, vp, ci, ci, ctypes.POINTER(ci), ci,
+                          vp]
             f.restype = ci
             f = getattr(lib, "panel_solve_" + sfx)
             f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, vp, ci, vp]
@@ -357,11 +486,11 @@ def _factor(L, Dinv, deq):
         _run("schur_factor", L, L.data_ptr(), Dinv.data_ptr(), dq, Bsz, n,
              cfg[0]["smem"])
         return "schur_factor"
-    sm = _panel_smem(L.element_size())
+    plan, nlaunch = _panel_factor_codes(Bsz, n, L.element_size(),
+                                        deq is not None)
     bad = torch.zeros(Bsz, dtype=torch.int32, device=L.device)
     _run("panel_factor", L, L.data_ptr(), Dinv.data_ptr(), dq,
-         bad.data_ptr(), Bsz, n, PANEL_NB, sm["diag"], sm["tile"],
-         sm["trail"], len(cfg))
+         bad.data_ptr(), Bsz, n, plan, nlaunch)
     return "panel_factor"
 
 

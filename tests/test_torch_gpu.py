@@ -8,6 +8,9 @@ but without the JAX package:
         tests/test_torch_gpu.py
 """
 
+import ctypes
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -255,6 +258,167 @@ def test_small_batch_non_pd_instance_between_pd_ones(cuda_device, dtype):
     x = fc.fused_cholesky_solve(L, D, torch.ones((B, 1, n), **kw))
     assert bool(torch.isnan(x[1]).all())
     assert bool(torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all())
+
+
+# ---- the f64 factor on the FP64 tensor cores, with the lookahead ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,m,per_instance", [
+    (1024, 320, 513, True), (1024, 320, 513, False),   # row 9 (cpl)
+    (1, 192, 378, False), (1, 192, 378, True),         # row 12 (boeing2)
+    (16, 64, 157, False), (16, 64, 157, True),         # row 14 (milp)
+    (8, 1280, 1248, True), (8, 1280, 1248, False),     # row 16 (parallel)
+    (1, 10240, 10240, False)])                         # row 19 (large_kkt)
+def test_f64_assembly_matches_plain_on_card(cuda_device, B, n, m,
+                                            per_instance):
+    """The DMMA schur_assemble alone at PERF.md's f64 rows' shapes, Gt
+    shared or per instance, m odd (rows not 16-byte aligned) or even: the
+    lower triangle of S within 1e-12 of torch's."""
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    P, Gtb, d2 = _convex(B if per_instance else 1, n, m, kw, seed=n + m,
+                         shift=1.0)
+    if not per_instance:
+        P = P.expand(B, n, n).contiguous()
+        d2 = torch.as_tensor(np.random.default_rng(m).uniform(
+            0.5, 2.0, (B, m)), **kw)
+    Gt = Gtb if per_instance else Gtb[0]
+    L = torch.empty((B, n, n), **kw)
+    fc._assemble(P, Gt, Gt.stride(0) if per_instance else 0, d2,
+                 d2.stride(0), L)
+    S = P + (Gt * d2.unsqueeze(-2)) @ Gt.transpose(-1, -2)
+    low = torch.ones((n, n), dtype=torch.bool, device=cuda_device).tril()
+    assert _rel(torch.where(low, L, 0.0), torch.where(low, S, 0.0)) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1280, 4096, 10240])
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_lookahead_factor_matches_plain_on_card(cuda_device, B, n):
+    """The f64 panel_factor with the lookahead (strip on the main stream,
+    the rest of each trailing update on the side stream) on bench.py's
+    large-KKT data (P = F F' + I): L and Dinv within 1e-12 of the plain
+    version, L's strict upper triangle 0, the result the same on a
+    second call."""
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    P, Gt, d2 = _convex(B, n, 192, kw, seed=n + B, shift=1.0)
+    plan = fc.launch_config("factor", B, n, 192, 8,
+                            fc._smem_optin(cuda_device), fc._sms(cuda_device))
+    assert {c.get("stream") for c in plan[1:]} == {"main", "side"}
+    fc.reset_launch_counts()
+    L, D = fc.fused_schur_cholesky(P, Gt, d2)
+    assert fc.launch_counts()["panel_factor"] == 1
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    assert _rel(L, Lr) <= 1e-12 and _rel(D, Dr) <= 1e-12
+    assert bool((torch.triu(L, 1) == 0).all())
+    del Lr, Dr
+    L2, D2 = fc.fused_schur_cholesky(P, Gt, d2)
+    assert torch.equal(L, L2) and torch.equal(D, D2)
+
+
+@pytest.mark.gpu
+def test_lookahead_non_pd_instance_between_pd_ones(cuda_device):
+    """f64 at n = 4096: the middle instance is not PD from its 32nd panel
+    on (the eighth outer panel, after seven split trailing updates): it
+    alone comes back all NaN; its neighbours agree with the plain version
+    and equal, bit for bit, their factor without it."""
+    B, n = 3, 4096
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    P, Gt, d2 = _convex(B, n, 128, kw, seed=12, shift=1.0)
+    P[1, 2000, 2000] = -1e6
+    L, D = fc.fused_schur_cholesky(P, Gt, d2)
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    assert bool(torch.isnan(L[1]).all() and torch.isnan(D[1]).all())
+    for k in (0, 2):
+        assert _rel(L[k], Lr[k]) <= 1e-12 and _rel(D[k], Dr[k]) <= 1e-12
+    two = [0, 2]
+    L2, D2 = fc.fused_schur_cholesky(P[two].contiguous(),
+                                     Gt[two].contiguous(), d2[two])
+    assert torch.equal(L[two], L2) and torch.equal(D[two], D2)
+
+
+def _panel_factor_with(L, D, codes, nlaunch):
+    """panel_factor on L (assembled S) with the encoded plan `codes`."""
+    bad = torch.zeros(L.shape[0], dtype=torch.int32, device=L.device)
+    plan = (ctypes.c_int * len(codes))(*codes)
+    fc._run("panel_factor", L, L.data_ptr(), D.data_ptr(), None,
+            bad.data_ptr(), L.shape[0], L.shape[-1], plan, nlaunch)
+
+
+@pytest.mark.gpu
+def test_panel_factor_runs_only_the_plan_launch_config_lists(cuda_device):
+    """f64 at n = 1280 (forked): the launcher runs the plan of
+    launch_config, and refuses, before it launches anything, the same plan
+    with one wait dropped, one record dropped, one launch moved to the
+    other stream, one column range changed, or the last launch cut."""
+    B, n = 1, 1280
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    P, Gt, d2 = _convex(B, n, 192, kw, seed=3, shift=1.0)
+    S = P + (Gt * d2.unsqueeze(-2)) @ Gt.transpose(-1, -2)
+    plan = fc.launch_config("factor", B, n, 192, 8,
+                            fc._smem_optin(cuda_device),
+                            fc._sms(cuda_device))[1:]
+    codes = fc.plan_codes(plan, n)
+    D = torch.empty((B, n // fc.BP, fc.BP, fc.BP), **kw)
+    L = S.clone()
+    _panel_factor_with(L, D, codes, len(plan))
+    Lr, Dr = fc.fused_schur_cholesky_ref(P, Gt, d2)
+    assert _rel(L, Lr) <= 1e-12 and _rel(D, Dr) <= 1e-12
+
+    strip = next(i for i, c in enumerate(plan) if c.get("waits") == ["rest"]
+                 and c["kernel"] == "trail_update")
+    rest = next(i for i, c in enumerate(plan) if c.get("part") == "rest")
+    chain = rest - 2        # records "panel" before the strip and the rest
+    assert plan[chain]["records"] == ["panel"]
+    wrong = {"no wait": (strip, 4, 0), "no record": (chain, 5, 0),
+             "rest on main": (rest, 3, fc.PLAN_STREAMS.index("main")),
+             "col1": (rest, 10, n - fc.BP)}
+    for name, (i, k, v) in wrong.items():
+        bad = list(codes)
+        bad[fc.PLAN_INTS * i + k] = v
+        assert bad != codes, name
+        L = S.clone()
+        with pytest.raises(RuntimeError, match="disagrees"):
+            _panel_factor_with(L, D, bad, len(plan))
+        torch.cuda.synchronize()
+        assert torch.equal(L, S), name
+    with pytest.raises(RuntimeError, match="disagrees"):
+        _panel_factor_with(S.clone(), D, codes[:-fc.PLAN_INTS],
+                           len(plan) - 1)
+
+
+@pytest.mark.gpu
+def test_lookahead_factors_from_two_host_threads(cuda_device):
+    """Two host threads, each on its own stream, factor at n = 1280 (f64,
+    B = 1, forked) at the same time, eight times each: the calls share one
+    device's lookahead streams and events, and every result equals the
+    plain version within 1e-12."""
+    n, reps = 1280, 8
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    data = [_convex(1, n, 192, kw, seed=40 + t, shift=1.0) for t in (0, 1)]
+    refs = [fc.fused_schur_cholesky_ref(*d) for d in data]
+    torch.cuda.synchronize()
+    start = threading.Barrier(2)
+    outs = [[], []]
+
+    def work(t):
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            start.wait()
+            for _ in range(reps):
+                outs[t].append(fc.fused_schur_cholesky(*data[t]))
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for t in (0, 1):
+        assert len(outs[t]) == reps
+        for L, D in outs[t]:
+            assert _rel(L, refs[t][0]) <= 1e-12
+            assert _rel(D, refs[t][1]) <= 1e-12
 
 
 def _interior(rng, d, B):

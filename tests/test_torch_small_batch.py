@@ -108,23 +108,39 @@ def test_the_threshold_follows_the_sm_count():
 def test_factor_plan_at_n_10240():
     """160 panels in 40 outer panels of 256 columns: 160 diagonal
     factors, 159 L21 launches, 3 panel updates in each outer panel and 39
-    rank-256 trailing updates; the first covers the 9,984-wide trailing
-    matrix in 78 x 79 / 2 tiles of 128."""
-    plan = fc.launch_config("factor", 1, 10240, 10240, 8, H100_SMEM,
-                            H100_SMS)
-    names = [c["kernel"] for c in plan]
-    assert names.count("panel_diag") == 160
-    assert names.count("panel_l21") == 159
-    assert names.count("panel_update") == 40 * 3
-    trail = [c for c in plan if c["kernel"] == "trail_update"]
-    assert len(trail) == 39
-    assert all(c["rank"] == fc.PANEL_NB for c in trail)
-    assert trail[0]["t0"] == 256 and trail[0]["grid"] == 78 * 79 // 2
-    assert len(plan) == 1 + 160 + 159 + 120 + 39 + 1
-    eq = fc.launch_config("factor", 1, 10240, 10240, 8, H100_SMEM,
-                          H100_SMS, equilibrate=True)
-    assert [c["kernel"] for c in eq[1:3]] == ["panel_deq", "panel_scale"]
-    assert eq[3:] == plan[1:]
+    rank-256 trailing updates; in f32 the first covers the 9,984-wide
+    trailing matrix in 78 x 79 / 2 tiles of 128.  In f64 each but the last
+    is split into the next panel's strip (2 x 78 - 1 tiles, on the main
+    stream) and the rest (76 x 77 / 2 tiles, on the side stream); the
+    last (n - t0 = 256) is a strip alone."""
+    for esize in (4, 8):
+        plan = fc.launch_config("factor", 1, 10240, 10240, esize,
+                                H100_SMEM, H100_SMS)
+        names = [c["kernel"] for c in plan]
+        assert names.count("panel_diag") == 160
+        assert names.count("panel_l21") == 159
+        assert names.count("panel_update") == 40 * 3
+        trail = [c for c in plan if c["kernel"] == "trail_update"]
+        assert all(c["rank"] == fc.PANEL_NB for c in trail)
+        assert trail[0]["t0"] == 256
+        if esize == 4:
+            assert len(trail) == 39
+            assert trail[0]["grid"] == 78 * 79 // 2
+            assert len(plan) == 1 + 160 + 159 + 120 + 39 + 1
+        else:
+            nxt = [c for c in trail if c["part"] == "next"]
+            rest = [c for c in trail if c["part"] == "rest"]
+            assert len(nxt) == 39 and len(rest) == 38
+            assert all(c["stream"] == "main" for c in nxt)
+            assert all(c["stream"] == "side" for c in rest)
+            assert nxt[0]["grid"] == 2 * 78 - 1
+            assert rest[0]["t0"] == 512 and rest[0]["grid"] == 76 * 77 // 2
+            assert len(plan) == 1 + 160 + 159 + 120 + 39 + 38 + 1
+        eq = fc.launch_config("factor", 1, 10240, 10240, esize, H100_SMEM,
+                              H100_SMS, equilibrate=True)
+        assert [c["kernel"] for c in eq[1:3]] == ["panel_deq", "panel_scale"]
+        strip = lambda c: {k: v for k, v in c.items() if k != "waits"}
+        assert [strip(c) for c in eq[3:]] == [strip(c) for c in plan[1:]]
 
 
 # ---- plain-torch walks of the plans --------------------------------------
@@ -167,9 +183,11 @@ def walk_factor(P, Gt, dinv2, plan):
                 L[:, oj:, oj:oj + BP] -= L[:, oj:, o:o + BP] @ \
                     L[:, oj:oj + BP, o:o + BP].transpose(-1, -2)
         elif k == "trail_update":
-            t0, k0 = c["t0"], c["k0"]
-            A = L[:, t0:, k0:k0 + c["rank"]]
-            L[:, t0:, t0:] -= torch.tril(A @ A.transpose(-1, -2))
+            # the lower part of columns col0 .. col1 - 1 (f32: t0 .. n - 1)
+            c0, c1, k0 = c.get("col0", c["t0"]), c.get("col1", n), c["k0"]
+            A = L[:, c0:, k0:k0 + c["rank"]]
+            L[:, c0:, c0:c1] -= torch.tril(
+                A @ A[:, :c1 - c0].transpose(-1, -2))
         elif k == "panel_finalize":
             L = torch.tril(L)
             L[bad] = float("nan")

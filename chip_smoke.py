@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
            instance that must come back NaN;
            kernel, plain-version and library times, share of the bound
            (bound_ms / ms), and schur_chol's two launches (assembly,
-           factor) timed apart
+           factor) timed apart; at n = 64 (the socp and ilp shapes) the
+           factor is one launch, schur_chol64, timed in turns with its
+           plain version, the library and the two-launch layout it
+           replaces
   cascade  make_coneqp_cascade(l=512, 'chol2_inv', 1e-7) on 1024
            scenario QPs with n=256: every status 0, gap/pres/dres
            <= 1e-7, IPM iterations/s, the batched kernels launched
@@ -87,7 +90,8 @@ Phases, each printing one JSON line:
            1e-5 / 1e-12 of its plain version on a well-conditioned factor
            of this shape, and on S with a residual within 10 times the
            library's); kernel, plain and library times (torch.linalg.
-           cholesky of torch's S, torch.cholesky_solve) in turns, the
+           cholesky of torch's S, torch.cholesky_solve; the solve in turns
+           with its plain version and the library's), the
            factor's two launches apart, one run of the one-block layout,
            a torch.profiler breakdown of one f64 factor (`factor_profile`:
            each kernel's device ms and launches, the DMMA kernels'
@@ -432,13 +436,24 @@ def _factor_bound(B, n, m, shared, esize):
                                  else "bytes")
 
 
+L2_BYTES = 50 * 2 ** 20    # the H100's L2 cache
+
+
 def _solve_bound(B, n, nrhs, rhs_shared, esize):
     """Per right-hand side, forward and backward: the strictly lower
     off-diagonal tiles (n (n-64) / 2 words) and the lower halves of the
-    Dinv blocks, 2 (n^2 + n) FLOP in all; bytes of those tiles, Dinv
-    and the right-hand sides in (once if shared) and out."""
+    Dinv blocks, 2 (n^2 + n) FLOP in all; bytes of the Dinv blocks and of
+    the right-hand sides in (once if shared) and out, and of the tiles:
+    both sweeps read every tile, and the backward sweep of an instance
+    starts only when its forward sweep has ended, so the second sweep
+    reads from memory what of an instance's tiles the L2 cannot keep
+    (tiles once where they fit in it, as at every shape but n = 10,240).
+    Shared memory and registers, which hold a chain's working set, are
+    not counted as a cache."""
     flops = B * 2.0 * (n * n + n) * nrhs
-    words = B * (n * (n - 64) / 2 + n * 64 + nrhs * n) + \
+    tiles = n * (n - 64) / 2
+    again = max(0.0, tiles - L2_BYTES / esize)
+    words = B * (tiles + again + n * 64 + nrhs * n) + \
         (nrhs * n if rhs_shared else B * nrhs * n)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = words * esize / PEAK_BYTES * 1e3
@@ -447,8 +462,11 @@ def _solve_bound(B, n, nrhs, rhs_shared, esize):
 
 
 def schur_split_ms(P, Gt, d2, reps=10, warmup=2):
-    """Device ms of schur_chol's two launches, schur_assemble and
-    schur_factor, each between CUDA events recorded around it."""
+    """Device ms of schur_chol's two launches, schur_assemble and the
+    factor (schur_factor, or panel_factor's launches), each between CUDA
+    events recorded around it.  At n = 64, where a factor call is one
+    launch of schur_chol64, this times the two-launch layout that calls
+    took before it (schur_assemble + schur_factor)."""
     import torch
     from cvxopt_tpu_torch.ops import fused_chol as fc
     B, n, _ = P.shape
@@ -493,6 +511,33 @@ def _lib_factor(P, Gt, d2):
     S = torch.baddbmm(P, Gt * d2.unsqueeze(-2), Gt.transpose(-1, -2)) \
         if Gt.dim() == 3 else P + (Gt * d2.unsqueeze(-2)) @ Gt.T
     return torch.linalg.cholesky(S)
+
+
+def chol64_times(fac, P, Gt, d2):
+    """The n = 64 factor's times: schur_chol64 through the wrapper (`ms`),
+    its plain version, the library's S + Cholesky, and the two-launch
+    layout it replaces (schur_assemble + schur_factor, `two_launch_*`,
+    called below the wrapper: without its checks and allocations), timed
+    in turns: kernel, plain, library, two-launch, then again."""
+    import torch
+    from cvxopt_tpu_torch.ops import fused_chol as fc
+    B, n, _ = P.shape
+    L = torch.empty_like(P)
+    D = torch.empty((B, 1, n, n), dtype=P.dtype, device=P.device)
+    gt_bs = Gt.stride(0) if Gt.dim() == 3 else 0
+
+    def two_launch():
+        fc._assemble(P, Gt, gt_bs, d2, d2.stride(0), L)
+        fc._factor(L, D, None)
+    t = in_turns({"ms": fac,
+                  "plain_ms": lambda: fc.fused_schur_cholesky_ref(P, Gt, d2),
+                  "library_ms": lambda: _lib_factor(P, Gt, d2),
+                  "two_launch_ms": two_launch})
+    out = {k: min(v) for k, v in t.items()}
+    out["turns"] = t
+    out["two_launch_assemble_ms"], out["two_launch_factor_ms"] = \
+        schur_split_ms(P, Gt, d2)
+    return out
 
 
 def phase_kernels(log, results):
@@ -596,18 +641,16 @@ def phase_kernels(log, results):
     P, Gt, d2 = kernel_data(Bq, nq_, mq_, f32, True, seed=5)
     d2 = torch.ones_like(d2)
     (L5, D5), ref5, e5 = _check_factor(k1, P, Gt, d2, "float32",
-                                       "fused_schur_cholesky (socp)", False)
+                                       "schur_chol64 (socp)", False)
+    _, _, e5q = _check_factor(k1, P, Gt, d2, "float32",
+                              "schur_chol64 (socp, equilibrate)", True)
     bound, by = _factor_bound(Bq, nq_, mq_, False, 4)
-    results["fused_schur_cholesky/socp"] = dict(
-        name="fused_schur_cholesky", replaces=rep + "129",
+    results["schur_chol64/socp"] = dict(
+        name="schur_chol64", replaces=rep + "129",
         shape=[Bq, nq_, mq_], dtype="float32", rel_fro_err=e5,
-        max_abs_err=max_abs(L5, ref5[0]),
-        ms=time_ms(lambda: k1(P, Gt, d2)),
-        plain_ms=time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-        library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
-        bound_ms=bound, bound_by=by)
-    r = results["fused_schur_cholesky/socp"]
-    r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+        rel_fro_err_equilibrate=e5q, max_abs_err=max_abs(L5, ref5[0]),
+        bound_ms=bound, bound_by=by,
+        **chol64_times(lambda: k1(P, Gt, d2), P, Gt, d2))
     eye = torch.eye(nq_, dtype=f32, device="cuda").expand(Bq, nq_, nq_)
     r1 = torch.randn((Bq, 1, nq_), device="cuda", dtype=f32, generator=g)
     s2 = lambda rhs: fc.fused_cholesky_solve(L5, D5, rhs)
@@ -724,22 +767,27 @@ def phase_kernels(log, results):
                                      ("milp", (16, 64, 157), None)):
         P, Gt, d2 = kernel_data(Bl, nl, ml, f64, False, seed=8)
         P = torch.zeros_like(P)
+        # n = 64 (the ilp node batches) is one launch of schur_chol64
+        key = ("schur_chol64/" if nl == fc.BP else
+               "fused_schur_cholesky_batched/") + tag
         (Ll, Dl), refl, el = _check_factor(
-            b1, P, Gt, d2, "float64",
-            f"fused_schur_cholesky_batched ({tag})", False)
+            b1, P, Gt, d2, "float64", f"{key.split('/')[0]} ({tag})", False)
         bound, by = _factor_bound(Bl, nl, ml, True, 8)
-        results["fused_schur_cholesky_batched/" + tag] = dict(
-            name="fused_schur_cholesky_batched", replaces=rep + "338",
+        results[key] = dict(
+            name=key.split("/")[0], replaces=rep + "338",
             shape=[Bl, nl, ml], dtype="float64", rel_fro_err=el,
             max_abs_err=max_abs(Ll, refl[0]),
-            ms=time_ms(lambda: b1(P, Gt, d2)),
-            plain_ms=time_ms(
-                lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
-            library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
-            one_block_ms=one_block_ms(lambda: b1(P, Gt, d2)),
             bound_ms=bound, bound_by=by, flop_rate=FLOP_RATE[8])
-        r = results["fused_schur_cholesky_batched/" + tag]
-        r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
+        r = results[key]
+        if nl == fc.BP:
+            r.update(chol64_times(lambda: b1(P, Gt, d2), P, Gt, d2))
+        else:
+            r.update(ms=time_ms(lambda: b1(P, Gt, d2)),
+                     plain_ms=time_ms(
+                         lambda: fc.fused_schur_cholesky_ref(P, Gt, d2)),
+                     library_ms=time_ms(lambda: _lib_factor(P, Gt, d2)),
+                     one_block_ms=one_block_ms(lambda: b1(P, Gt, d2)))
+            r["assemble_ms"], r["factor_ms"] = schur_split_ms(P, Gt, d2)
         sl = lambda rhs: fc.fused_cholesky_solve_batched(Ll, Dl, rhs, tb=1)
         errs = {}
         for k in (1, extra) if extra else (1,):
@@ -981,7 +1029,7 @@ def phase_socp(log, results):
     _solver_phase(
         log, results, "socp", solve, soc_qps(1024, seed=0),
         soc_qps(64, seed=1),
-        ("fused_schur_cholesky/socp", "fused_cholesky_solve/socp"),
+        ("schur_chol64/socp", "fused_cholesky_solve/socp"),
         lambda *d: cpu(*(u[:4] for u in d)), 1e-7, 1e-6,
         extra={"n": 64, "cone": "q=(4,)*100"})
 
@@ -1469,7 +1517,7 @@ def phase_lp_milp(log, results):
           "cover cuts did not prune the search")
     mark("milp")
     _attribute(results, total, "lp_milp",
-               ("fused_schur_cholesky_batched/milp",
+               ("schur_chol64/milp",
                 "fused_cholesky_solve_batched/milp"))
     rec["nvidia_smi"] = nvidia_smi()
     emit(rec, log)
@@ -2445,15 +2493,17 @@ def _large_kkt_rows(F, Gt_np, d_np, dtype, g, fails):
         "ms": fac,
         "library_ms": lambda: torch.linalg.cholesky(
             P + (Gt * d) @ Gt.T),
-        "library_factor_ms": lambda: torch.linalg.cholesky(S),
-        "solve_ms": lambda: fc.fused_cholesky_solve(L, D, b),
-        "solve_library_ms": lambda: torch.cholesky_solve(b.T, Llib)},
+        "library_factor_ms": lambda: torch.linalg.cholesky(S)},
         reps=3, warmup=1)
     rec.update(t)
+    # the solve in turns with its plain version and the library's
+    rec.update(in_turns({
+        "solve_ms": lambda: fc.fused_cholesky_solve(L, D, b),
+        "solve_plain_ms": lambda: fc.fused_cholesky_solve_ref(L, D, b),
+        "solve_library_ms": lambda: torch.cholesky_solve(b.T, Llib)},
+        rounds=3, reps=10, warmup=2))
     rec["plain_ms"] = time_ms(lambda: fc.fused_schur_cholesky_ref(P, Gt, d),
                               reps=2, warmup=1)
-    rec["solve_plain_ms"] = time_ms(
-        lambda: fc.fused_cholesky_solve_ref(L, D, b), reps=3, warmup=1)
     rec["assemble_ms"], rec["factor_ms"] = schur_split_ms(
         P[None], Gt, d[None], reps=3, warmup=1)
     rec["one_block_ms"] = one_block_ms(fac, reps=1, warmup=0)
@@ -2675,7 +2725,10 @@ def phase_large_kkt(log, results):
         r64, r32 = rows["float64"], rows["float32"]
 
         def pick(r):
-            return dict(ms=min(r[pre + "ms"]), plain_ms=r[pre + "plain_ms"],
+            plain = r[pre + "plain_ms"]
+            return dict(ms=min(r[pre + "ms"]),
+                        plain_ms=min(plain) if isinstance(plain, list)
+                        else plain,
                         library_ms=min(r[pre + "library_ms"]),
                         bound_ms=r[pre + "bound_ms"],
                         bound_by=r[pre + "bound_by"],

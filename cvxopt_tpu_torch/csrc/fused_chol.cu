@@ -6,9 +6,10 @@
 //   chol_solve  <- fused_cholesky_solve (:194) and
 //                  fused_cholesky_solve_batched (:404)
 //
-// schur_chol is two launches (for a batch much smaller than the SM count
-// the second is panel_factor's loop instead, and the solve panel_solve:
-// see "the small-batch path" below):
+// At n = 64 schur_chol is one launch, schur_chol64 (below).  At larger n
+// it is two launches (for a batch much smaller than the SM count the
+// second is panel_factor's loop instead, and the solve panel_solve: see
+// "the small-batch path" below):
 //   schur_assemble  S = P + Gt diag(dinv2) Gt', S's lower 128x128 tiles,
 //                   one block per (instance, tile), written into L
 //   schur_factor    one block per instance:
@@ -66,6 +67,24 @@
 // neither copy latency nor the mma shape sets the pace; what does is not
 // measured (no profiler of the SM's pipes runs on that machine).
 //
+// schur_chol64 (n = 64: the socp path's per-instance factor, the ilp node
+// batches) is one block per instance.  schur_assemble's 128x128 tiles
+// would spend two thirds of their FMAs on padding at n = 64, and a second
+// launch would read S back to factor one panel.  Here the block streams
+// Gt's 64 rows by k-chunks of 32 through a 3-stage cp.async ring (one
+// operand serves both sides of the product; dinv2 scales the A side in
+// the k-major copy), 136 threads each accumulate one 4x4 micro-tile on or
+// below the diagonal in registers, then S, its Jacobi scaling and its
+// factor and inverse (diag_factor) stay in shared memory, and L, Dinv and
+// deq are written once.  The ring aliases the factor's tiles (52 KB in
+// f32, 4 blocks an SM; 100 KB in f64, 2).  What bounds it: issue.  At
+// B = 1024, m = 400 the FMAs take 27 us at the FP32 peak and the bytes
+// 44 us, against 0.18-0.19 ms measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (0.40 ms for the two launches it replaces, 0.40 for torch's S
+// and Cholesky): 4 of 8 warps carry the FMAs, every chunk takes two
+// barriers, and the pivot chain of diag_factor overlaps only with the
+// other resident blocks.
+//
 // schur_factor is latency-bound: 64 dependent pivots per panel.  The
 // diagonal block is factored in shared memory by 16-column sub-panels:
 // the sub-panel's columns are updated by those to their left (all
@@ -98,6 +117,7 @@
 // clamped the pivot and returned finite garbage).  The solvers turn
 // NaN into a status code.  The solve tests no pivot: a NaN L gives NaN x.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -590,20 +610,17 @@ __device__ __forceinline__ void inv_level(const T* sL, T* sLi, T* sX) {
   __syncthreads();
 }
 
-// Factor the 64x64 diagonal block at Ld (leading dimension n) in shared
-// memory, as schur_factor's panel step: L11 into Ld with its strict upper
-// triangle zero, inv(L11) into Dj and left in sLi.  Returns true, and
-// writes nothing, when a pivot is <= 0 or not finite (sbad is set and
-// read after a barrier, so the return is uniform over the block).
+// Factor the 64x64 block in sL (pitch TPITCH; only its lower triangle is
+// read) in shared memory: L11 in sL with its strict upper triangle zero,
+// inv(L11) in sLi, 1 / diag(L11) in sRd.  Returns true when a pivot is <=
+// 0 or not finite (sbad is set and read after a barrier, so the return
+// is uniform over the block).  The caller has set sbad to 0 and made sL
+// visible to the block with a barrier.
 template <typename T>
-__device__ __forceinline__ bool diag_panel(T* Ld, int n, T* Dj, T* sL,
-                                           T* sLi, T* sX, T* sRd,
-                                           int& sbad) {
+__device__ __forceinline__ bool diag_factor(T* sL, T* sLi, T* sX, T* sRd,
+                                            int& sbad) {
   constexpr int P = TPITCH<T>, W = VW<T>;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int idx = tid; idx < BP * BP; idx += NT)
-    sL[idx / BP * P + idx % BP] = Ld[(long long)(idx / BP) * n + idx % BP];
-  __syncthreads();
 
   // ---- Cholesky of the diagonal block by 16-column sub-panels q
   for (int q = 0; q < BP; q += 16) {
@@ -693,7 +710,24 @@ __device__ __forceinline__ bool diag_panel(T* Ld, int n, T* Dj, T* sL,
   inv_level<8>(sL, sLi, sX);
   inv_level<16>(sL, sLi, sX);
   inv_level<32>(sL, sLi, sX);
-  for (int idx = tid; idx < BP * BP; idx += NT) {
+  return false;
+}
+
+// Factor the 64x64 diagonal block at Ld (leading dimension n) in shared
+// memory, as schur_factor's panel step: L11 into Ld with its strict upper
+// triangle zero, inv(L11) into Dj and left in sLi.  Returns true, and
+// writes nothing, when a pivot is <= 0 or not finite (uniform over the
+// block, as diag_factor's).
+template <typename T>
+__device__ __forceinline__ bool diag_panel(T* Ld, int n, T* Dj, T* sL,
+                                           T* sLi, T* sX, T* sRd,
+                                           int& sbad) {
+  constexpr int P = TPITCH<T>;
+  for (int idx = threadIdx.x; idx < BP * BP; idx += NT)
+    sL[idx / BP * P + idx % BP] = Ld[(long long)(idx / BP) * n + idx % BP];
+  __syncthreads();
+  if (diag_factor(sL, sLi, sX, sRd, sbad)) return true;
+  for (int idx = threadIdx.x; idx < BP * BP; idx += NT) {
     const int r = idx / BP, c = idx % BP;
     Ld[(long long)r * n + c] = sL[r * P + c];
     Dj[idx] = sLi[r * P + c];
@@ -808,6 +842,159 @@ schur_factor_kernel(T* __restrict__ L, T* __restrict__ Dinv,
     for (int J = I + 1; J < npan; ++J)
       for (int idx = tid; idx < BP * BP; idx += NT)
         Lb[(long long)(I * BP + idx / BP) * n + J * BP + idx % BP] = T(0);
+}
+
+// ---- schur_chol64: the whole factor of a one-panel system (n = 64) -----
+
+constexpr int C64_KC = 32;       // schur_chol64: k-chunk
+constexpr int C64_STAGES = 3;    // and its cp.async ring depth
+constexpr int C64_TILES = 136;   // 4x4 micro-tiles on or below the diagonal
+
+// The ring, the k-major chunk and dinv2's chunks alias the factor's
+// tiles: the assembly is over before the factor starts.
+template <typename T> constexpr int C64_RING =
+    (C64_STAGES * BP * (C64_KC + VW<T>) + 2 * C64_KC * TPITCH<T> +
+     C64_STAGES * C64_KC) * sizeof(T);
+static_assert(C64_RING<float> <= SMEM_FAC<float>, "ring exceeds the tiles");
+static_assert(C64_RING<double> <= SMEM_FAC<double>, "ring exceeds the tiles");
+
+// One block per instance: S = P + Gt diag(dinv2) Gt' for the 64x64 block,
+// accumulated in registers over k-chunks of Gt's 64 rows (one operand for
+// both sides of the product), then [equilibrate] and factor and inverse
+// in shared memory (diag_factor), and L, Dinv (and deq) written once.
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 4 : 2)
+schur_chol64_kernel(const T* __restrict__ P, const T* __restrict__ Gt,
+                    long long gt_bs, const T* __restrict__ dinv2,
+                    long long d_bs, T* __restrict__ L, T* __restrict__ Dinv,
+                    T* __restrict__ deq, int m, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int P_ = TPITCH<T>, PA = C64_KC + VW<T>, KC = C64_KC;
+  T* sL = reinterpret_cast<T*>(smem_raw);   // S, then L11
+  T* sLi = sL + BP * P_;                    // inv(L11)
+  T* sX = sLi + BP * P_;                    // inverse scratch
+  T* sRd = sX + BP * P_;                    // deq, then 1 / diag(L11)
+  T* ring = sL;                             // C64_STAGES x 64 x PA
+  T* kmaj = ring + C64_STAGES * BP * PA;    // {A dinv2, A} x KC x P_
+  T* dring = kmaj + 2 * KC * P_;            // C64_STAGES x KC: dinv2
+  __shared__ int sbad;
+
+  const long long b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const T* G = Gt + b * gt_bs;
+  const T* d2 = dinv2 + b * d_bs;
+  const int nchunk = (m + KC - 1) / KC;
+  if (tid == 0) sbad = 0;
+
+  auto fetch = [&](int c) {
+    if (c < nchunk) {
+      const int k0 = c * KC, s = c % C64_STAGES;
+      stage(ring + s * BP * PA, PA, G + k0, m, BP, KC, BP, m - k0, vec);
+      stage(dring + s * KC, KC, d2 + k0, 0, 1, KC, 1, m - k0, vec);
+    }
+    cp_commit();
+  };
+  // Chunk c k-major: thread t < 128 moves the 4x4 block (rows 4 (t / 8)
+  // .., k 4 (t % 8) ..) times dinv2 into the A side, thread t >= 128 the
+  // same block as it is into the B side.
+  auto transpose = [&](int c) {
+    const int side = tid / 128, t = tid % 128, s = c % C64_STAGES;
+    const int r = (t / 8) * 4, k = (t % 8) * 4;
+    T v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld4(ring + s * BP * PA + (r + i) * PA + k, v[i]);
+    if (side == 0) {
+      T dv[4];
+      ld4(dring + s * KC + k, dv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[i][j] *= dv[j];
+    }
+    T* dst = kmaj + side * KC * P_ + k * P_ + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const T w[4] = {v[0][j], v[1][j], v[2][j], v[3][j]};
+      st4(dst + j * P_, w);
+    }
+  };
+
+  // threads t < C64_TILES own the lower 4x4 micro-tile t (row-major over
+  // the triangle of the 16 x 16 micro-tiles): rows 4 tr .., columns 4 tc ..
+  int tr, tc;
+  tri_tile(tid < C64_TILES ? tid : 0, tr, tc);
+  T acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+
+  for (int c = 0; c < C64_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < nchunk; ++c) {
+    cp_wait<C64_STAGES - 2>();
+    __syncthreads();      // chunk c has landed; chunk c-1's k-major is read
+    fetch(c + C64_STAGES - 1);
+    transpose(c);
+    __syncthreads();      // chunk c is k-major
+    if (tid < C64_TILES) {
+      const T* a = kmaj + tr * 4;
+      const T* bb = kmaj + KC * P_ + tc * 4;
+#pragma unroll 8
+      for (int k = 0; k < KC; ++k) {
+        T av[4], bv[4];
+        ld4(a + k * P_, av);
+        ld4(bb + k * P_, bv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();        // the ring is free: S goes to sL
+
+  const T* Pb = P + b * (BP * BP);
+  if (tid < C64_TILES)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tr * 4 + i, c = tc * 4 + j;
+        sL[r * P_ + c] = acc[i][j] + Pb[r * BP + c];
+      }
+  __syncthreads();
+
+  if (deq) {
+    // deq_i = 1/sqrt(max(S_ii, 1e-30)), NaN stays NaN; S := D S D
+    if (tid < BP) {
+      const T d = deq_of(sL[tid * P_ + tid]);
+      sRd[tid] = d;
+      deq[b * BP + tid] = d;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < BP * BP; idx += NT) {
+      const int r = idx / BP, c = idx % BP;
+      if (c <= r) sL[r * P_ + c] = sL[r * P_ + c] * sRd[r] * sRd[c];
+    }
+    __syncthreads();
+  }
+
+  T* Lb = L + b * (BP * BP);
+  T* Db = Dinv + b * (BP * BP);
+  if (diag_factor(sL, sLi, sX, sRd, sbad)) {
+    const T nan = qnan<T>();
+    for (int idx = tid; idx < BP * BP; idx += NT) {
+      Lb[idx] = nan;
+      Db[idx] = nan;
+    }
+    return;
+  }
+  for (int idx = tid; idx < BP * BP; idx += NT) {
+    const int r = idx / BP, c = idx % BP;
+    Lb[idx] = sL[r * P_ + c];
+    Db[idx] = sLi[r * P_ + c];
+  }
 }
 
 // ---- chol_solve -------------------------------------------------------
@@ -1117,13 +1304,26 @@ solve_few_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
 // device memory and maps it to its work, panel order first, so a block
 // only ever waits for blocks with lower tickets, which have started:
 // there is no deadlock, whatever order the hardware starts blocks in.
-// The forward block of panel j sums L[j, k] y_k over k < j as the chain
-// publishes y_k (a per-chain counter, written after a fence), then
-// y_j = Dinv[j] (b_j - sum); the backward blocks run the same chain from
-// the last panel with the transposed tiles.  L's tiles are read once per
-// sweep by the many blocks at once (the bound is L's bytes); the chain of
-// 2 n/64 Dinv products, each behind a fence and a counter, sets the
-// latency.
+// Forward block j sums s = L[j, k] y_k over k < j - 1 as the chain
+// publishes y_k, then takes y_{j-1} and forms y_j = Dinv[j] (b_j - s -
+// L[j, j-1] y_{j-1}); the backward blocks run the same chain from the
+// last panel with the transposed tiles.  What bounds it: a chain of 2
+// n/64 dependent steps, and each step needs every block still running to
+// have read one more 64x64 tile of L.  So the design keeps both short:
+//   - a value is published with its tag in one 64-bit word (two in f64),
+//     so a hand-off is one store and one poll of the panel itself, with
+//     no fence and no counter; warp 0 polls a panel once for the block
+//     and shares it through shared memory;
+//   - L's tiles come through a 4-slot ring filled by TMA, one tensor copy
+//     a tile: with 16-byte copies one block streamed ~13 GB/s (the
+//     requests in flight per SM), which paced every step;
+//   - the sums over tiles stay in registers, 16 FMAs a tile a thread on
+//     rows of 128 contiguous bytes, and are reduced once after the loop.
+// On an NVIDIA H100 80GB HBM3 at 700 W, n = 10,240, one right-hand side
+// (scripts/torch_panel_solve.py): 0.57 ms in f64, 0.40 ms in f32, against
+// 1.64 / 1.03 ms for the design it replaced and a 0.23 / 0.11 ms bound
+// (L read by both sweeps, less what of it the 50 MB L2 keeps between
+// them).
 
 constexpr int NB = 256;      // outer panel: rank of the trailing updates
 constexpr int TT = 128;      // trail_update output tile
@@ -1132,7 +1332,6 @@ constexpr int TP = TT + 4;   // trail_update k-major row pitch
 template <typename T> constexpr int SMEM_PTILE = 2 * BP * TPITCH<T> * sizeof(T);
 constexpr int TCP = TT + 4;  // trail_update C tile pitch (f32)
 constexpr int SMEM_TRAIL = (2 * 2 * TKC * TP + TT * TCP) * 4;
-template <typename T> constexpr int SMEM_PSOLVE = 2 * BP * sizeof(T);
 
 // deq = 1/sqrt(max(diag S, 1e-30)), NaN stays NaN; NT rows per block.
 template <typename T>
@@ -1448,133 +1647,305 @@ panel_finalize_kernel(T* __restrict__ L, T* __restrict__ Dinv,
   }
 }
 
-// Wait until the counter at c reaches `need`; returns the value seen.
-// Thread 0 spins, then a fence orders the block's later reads after it.
-__device__ __forceinline__ int wait_count(const int* c, int need, int* s) {
-  if (threadIdx.x == 0) {
-    int v;
-    while ((v = *reinterpret_cast<const volatile int*>(c)) < need) {
-    }
-    __threadfence();
-    *s = v;
-  }
-  __syncthreads();
-  const int v = *s;
-  __syncthreads();
-  return v;
+// ---- panel_solve --------------------------------------------------------
+//
+// Scratch, zeroed by the wrapper before each launch (psolve_scratch
+// bytes): the ticket counter, then per (chain, sweep) the n published
+// values.  A value is published as one (f32) or two (f64: low and high
+// half) 64-bit words whose high 32 bits hold the tag PS_TAG.  Each word is
+// stored and loaded whole, so a reader that sees the tag sees the value,
+// with no fence on either side and no counter.
+//
+// L's tiles stream through a ring of PS_RING slots in shared memory,
+// one TMA copy (cp.async.bulk.tensor.2d) of a whole 64x64 tile each,
+// completing on the slot's mbarrier.
+
+constexpr int PS_RING = 4;   // slots of the ring of L's tiles
+constexpr unsigned long long PS_TAG = 1ULL << 32;
+template <typename T> constexpr int PS_WPV = sizeof(T) / 4;   // words a value
+// A ring slot: a 64x64 tile, dense as TMA writes it (a multiple of the
+// 128 bytes TMA aligns to).
+constexpr int PS_SLOT = BP * BP;
+// the ring (its first slot holds the partial sums after the loop), the
+// panel's right side and four buffers of a published panel, behind up to
+// 128 bytes that align the ring for TMA
+template <typename T> constexpr int SMEM_PSOLVE =
+    128 + (PS_RING * PS_SLOT + 5 * BP) * sizeof(T);
+
+template <typename T>
+__host__ __device__ constexpr long long psolve_scratch(int chains, int n) {
+  return 128LL + (long long)chains * 2 * n * PS_WPV<T> * 8;
 }
 
-// 16 consecutive elements at p (16-byte aligned), through L2 only.
+__device__ __forceinline__ void ld2_relaxed(const unsigned long long* p,
+                                            unsigned long long& a,
+                                            unsigned long long& b) {
+  asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];\n"
+               : "=l"(a), "=l"(b) : "l"(p));
+}
+
+__device__ __forceinline__ double join_halves(unsigned long long lo,
+                                              unsigned long long hi) {
+  return __longlong_as_double((long long)((hi << 32) | (lo & 0xffffffffULL)));
+}
+
+// Two consecutive values at p (16-byte aligned) into v; true when both
+// are tagged.
 template <typename T>
-__device__ __forceinline__ void ld16_cg(const T* p, T* v) {
-  using V16 = typename Vec<T>::type;
-#pragma unroll
-  for (int q = 0; q < 16; q += VW<T>) {
-    const V16 x = __ldcg(reinterpret_cast<const V16*>(p + q));
-    const T* e = reinterpret_cast<const T*>(&x);
-#pragma unroll
-    for (int w = 0; w < VW<T>; ++w) v[q + w] = e[w];
+__device__ __forceinline__ bool take2(const unsigned long long* p, T* v) {
+  unsigned long long a, b;
+  ld2_relaxed(p, a, b);
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float((unsigned)a);
+    v[1] = __uint_as_float((unsigned)b);
+    return (a >= PS_TAG) & (b >= PS_TAG);
+  } else {
+    unsigned long long c, d;
+    ld2_relaxed(p + 2, c, d);
+    v[0] = join_halves(a, b);
+    v[1] = join_halves(c, d);
+    return (a >= PS_TAG) & (b >= PS_TAG) & (c >= PS_TAG) & (d >= PS_TAG);
   }
 }
 
-// sync: [0] the ticket counter, then per chain (instance, right-hand
-// side) the forward and the backward panels done; zero at launch.
+// Warp 0: the 64 values of a published panel at p into sy, polling until
+// all are tagged (lane l takes values 2l and 2l + 1).
 template <typename T>
-__global__ void __launch_bounds__(NT)
-panel_solve_kernel(const T* __restrict__ L, const T* __restrict__ Dinv,
-                   const T* __restrict__ Bm, long long b_bs, T* X, int n,
-                   int nrhs, int chains, int* sync) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sv = reinterpret_cast<T*>(smem_raw);   // 64: the panel's right side
-  __shared__ int s_ticket, s_seen;
-  const int tid = threadIdx.x;
-  if (tid == 0) s_ticket = atomicAdd(sync, 1);
+__device__ __forceinline__ void take_panel(const unsigned long long* p, T* sy) {
+  const int lane = threadIdx.x % 32;
+  T v[2];
+  while (!__all_sync(0xffffffffu, take2(p + 2 * lane * PS_WPV<T>, v))) {
+  }
+  sy[2 * lane] = v[0];
+  sy[2 * lane + 1] = v[1];
+}
+
+template <typename T>
+__device__ __forceinline__ void publish(unsigned long long* p, T v) {
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p),
+                 "l"(PS_TAG | __float_as_uint(v)) : "memory");
+  } else {
+    const unsigned long long w = (unsigned long long)__double_as_longlong(v);
+    asm volatile("st.relaxed.gpu.global.v2.b64 [%0], {%1, %2};\n" ::"l"(p),
+                 "l"(PS_TAG | (w & 0xffffffffULL)), "l"(PS_TAG | (w >> 32))
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the completion of the mbarrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  unsigned done;
+  do {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One thread: the 64x64 tile at (row, col) of the tensor map into dst
+// (dense), completing on bar.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         int row, int col, int bytes,
+                                         unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(col), "r"(row),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// Sixteen consecutive elements at p (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void ld16x(const T* p, T* v) {
+#pragma unroll
+  for (int q = 0; q < 16; q += 4) ld4(p + q, v + q);
+}
+
+template <typename T>
+__device__ __forceinline__ T quad_sum(T s) {
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+// One block per (chain = (instance, right-hand side), 64-row panel j,
+// sweep), in ticket order.  Forward: y_j = Dinv[j] (b_j - s - L[j, j-1]
+// y_{j-1}), with s = sum_{k < j-1} L[j, k] y_k summed before y_{j-1}
+// arrives.  Backward: x_j = Dinv[j]' (y_j - s - L[j+1, j]' x_{j+1}), with
+// s = sum_{k > j+1} L[k, j]' x_k.  In the loop over L's tiles thread t
+// takes rows t / 8 and t / 8 + 32 and columns 16 q + 2 (t % 8) (+ 1),
+// q < 4, of each tile, so that a quarter warp reads 128 contiguous bytes
+// of one row; it sums in registers over all the tiles, and the sums are
+// reduced once, after the loop, in a fixed order.  For the chain's step
+// thread (rc, seg) = (t / 4, 16 (t % 4)) owns row rc and columns seg ..
+// seg + 15 of the two 64x64 mat-vecs, whose parts it holds in registers
+// from the start.  Warp 0 fetches the published panels the block needs
+// into shared memory; thread 32 keeps the ring of L's tiles filled.
+template <typename T>
+__global__ void __launch_bounds__(NT, 2)
+panel_solve_kernel(const __grid_constant__ CUtensorMap lmap,
+                   const T* __restrict__ L, const T* __restrict__ Dinv,
+                   const T* __restrict__ Bm, long long b_bs,
+                   T* __restrict__ X, int n, int nrhs, int chains,
+                   unsigned char* __restrict__ scratch) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int WPV = PS_WPV<T>, R = PS_RING;
+  T* ring = reinterpret_cast<T*>(   // R slots of PS_SLOT
+      smem_raw + (128 - smem_addr(smem_raw) % 128) % 128);
+  T* sv = ring + R * PS_SLOT;       // 64: the panel's right side
+  T* sy = sv + BP;                  // 4 x 64: published panels
+  __shared__ __align__(8) unsigned long long bar[R];
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x, warp = tid / 32;
+  if (tid == 0) {
+    s_ticket = atomicAdd(reinterpret_cast<int*>(scratch), 1);
+    for (int s = 0; s < R; ++s) mbar_init(bar + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
   const int ticket = s_ticket;
   const int chain = ticket % chains, pos = ticket / chains;
   const long long b = chain / nrhs;
   const int row = chain % nrhs, npan = n / BP;
+  const bool fwd = pos < npan;
+  const int j = fwd ? pos : 2 * npan - 1 - pos, o = j * BP;
   const T* Lb = L + b * (long long)n * n;
-  const T* Db = Dinv + b * (long long)npan * BP * BP;
-  const T* bv = Bm + b * b_bs + (long long)row * n;
-  T* x = X + (b * nrhs + row) * (long long)n;
-  int* done = sync + 1 + 2 * chain;   // forward, backward panels done
+  unsigned long long* ypub = reinterpret_cast<unsigned long long*>(scratch + 128) +
+                             (long long)chain * 2 * n * WPV;
+  unsigned long long* xpub = ypub + (long long)n * WPV;
+  const unsigned long long* get = fwd ? ypub : xpub;
   const int rc = tid / 4, seg = (tid % 4) * 16;
-  T s = T(0), lt[16], cur[16], xv[16], dv[16];
 
-  if (pos < npan) {
-    // forward: thread (rc, seg) holds row rc, columns seg .. seg + 15 of
-    // each tile L[j, k] and of Dinv[j]
-    const int j = pos, o = j * BP;
-    const T* Lr = Lb + (long long)(o + rc) * n + seg;
-#pragma unroll
-    for (int q = 0; q < 16; q += 4)
-      ld4(Db + (long long)j * BP * BP + rc * BP + seg + q, dv + q);
-    if (j > 0)
-#pragma unroll
-      for (int q = 0; q < 16; q += 4) ld4(Lr + q, lt + q);
-    int seen = 0;
-    for (int k = 0; k < j; ++k) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) cur[q] = lt[q];
-      if (k + 1 < j)
-#pragma unroll
-        for (int q = 0; q < 16; q += 4) ld4(Lr + (k + 1) * BP + q, lt + q);
-      if (k >= seen) seen = wait_count(done, k + 1, &s_seen);
-      ld16_cg(x + k * BP + seg, xv);
-#pragma unroll
-      for (int q = 0; q < 16; ++q) s += cur[q] * xv[q];
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (tid % 4 == 0) sv[rc] = bv[o + rc] - s;
-    __syncthreads();
-    T t = T(0);
-#pragma unroll
-    for (int q = 0; q < 16; ++q) t += dv[q] * sv[seg + q];
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-    if (tid % 4 == 0) x[o + rc] = t;
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) atomicExch(done, j + 1);
+  // the thread's part of Dinv[j] (row rc, or column rc backward) and of
+  // the tile beside the diagonal (forward L[j, j-1] row rc; backward
+  // L[j+1, j] column rc), for the chain's step
+  const bool has_m = fwd ? j > 0 : j + 1 < npan;
+  const T* Dj = Dinv + (b * npan + j) * (long long)(BP * BP);
+  T dv[16], lv[16];
+  if (fwd) {
+    ld16x(Dj + rc * BP + seg, dv);
+    if (has_m) ld16x(Lb + (long long)(o + rc) * n + o - BP + seg, lv);
   } else {
-    // backward: thread (rc, seg) holds column rc, rows seg .. seg + 15 of
-    // each tile L[k, j] and of Dinv[j]
-    const int j = 2 * npan - 1 - pos, o = j * BP;
-    const T* Dj = Db + (long long)j * BP * BP;
 #pragma unroll
-    for (int q = 0; q < 16; ++q) dv[q] = Dj[(seg + q) * BP + rc];
-    const T* Lc = Lb + (long long)seg * n + o + rc;   // + k BP n + q n
-    if (j + 1 < npan)
-#pragma unroll
-      for (int q = 0; q < 16; ++q) lt[q] = Lc[(long long)((npan - 1) * BP + q) * n];
-    wait_count(done, npan, &s_seen);              // every y_k is written
-    int seen = 0;
-    for (int k = npan - 1; k > j; --k) {
-#pragma unroll
-      for (int q = 0; q < 16; ++q) cur[q] = lt[q];
-      if (k - 1 > j)
-#pragma unroll
-        for (int q = 0; q < 16; ++q) lt[q] = Lc[(long long)((k - 1) * BP + q) * n];
-      if (npan - k > seen) seen = wait_count(done + 1, npan - k, &s_seen);
-      ld16_cg(x + k * BP + seg, xv);
-#pragma unroll
-      for (int q = 0; q < 16; ++q) s += cur[q] * xv[q];
+    for (int q = 0; q < 16; ++q) {
+      dv[q] = Dj[(seg + q) * BP + rc];
+      if (has_m) lv[q] = Lb[(long long)(o + BP + seg + q) * n + o + rc];
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (tid % 4 == 0) sv[rc] = __ldcg(x + o + rc) - s;
-    __syncthreads();
-    T t = T(0);
+  }
+
+  // the loop over the tiles i of the panel's row (forward: k = i < j - 1)
+  // or column (backward: k = npan - 1 - i > j + 1), each times the
+  // published panel k (y_k, x_k), which warp 0 fetches into sy[i % 2]
+  const int ntile = fwd ? max(j - 1, 0) : max(npan - j - 2, 0);
+  const int lrow = (int)(b * n);   // the instance's first row in the map
+  auto fetch = [&](int i) {   // thread 32: tile i into slot i % R
+    if (i < ntile) {
+      const int k = fwd ? i : npan - 1 - i;
+      tma_tile(ring + (i % R) * PS_SLOT, &lmap,
+               lrow + (fwd ? o : k * BP), fwd ? k * BP : o,
+               BP * BP * (int)sizeof(T), bar + i % R);
+    }
+  };
+  if (tid == 32)
+    for (int i = 0; i < R - 1; ++i) fetch(i);
+  const int r0 = tid / 8, c0 = (tid % 8) * 2;   // rows r0, r0 + 32; columns
+                                                // c0 + 16 q (+ 1)
+  T acc[8];   // forward: rows r0 (acc[0]), r0 + 32 (acc[1]); backward:
+              // columns c0 + 16 q (+ 1) (acc[2 q], acc[2 q + 1])
 #pragma unroll
-    for (int q = 0; q < 16; ++q) t += dv[q] * sv[seg + q];
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-    if (tid % 4 == 0) x[o + rc] = t;
-    __threadfence();
+  for (int q = 0; q < 8; ++q) acc[q] = T(0);
+  for (int i = 0; i < ntile; ++i) {
+    if (warp == 0)
+      take_panel(get + (long long)(fwd ? i : npan - 1 - i) * BP * WPV,
+                 sy + (i % 2) * BP);
+    __syncthreads();   // panel i is in sy[i % 2]; every thread is done
+                       // with tile i - 1, whose slot is free
+    if (tid == 32) fetch(i + R - 1);
+    mbar_wait(bar + i % R, (i / R) & 1);
+    const T* t = ring + (i % R) * PS_SLOT;
+    const T* y = sy + (i % 2) * BP;
+    if (fwd) {   // acc[h] += L[j, k][r0 + 32 h][c] y_k[c] over its columns
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + 16 * q;
+        const T y0 = y[c], y1 = y[c + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const T* tr = t + (r0 + 32 * h) * BP + c;
+          acc[h] += tr[0] * y0 + tr[1] * y1;
+        }
+      }
+    } else {     // acc[c] += L[k, j][r][c] x_k[r] over its rows r
+      const T x0 = y[r0], x1 = y[r0 + 32];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + 16 * q;
+        const T* a = t + r0 * BP + c;
+        const T* e = t + (r0 + 32) * BP + c;
+        acc[2 * q] += a[0] * x0 + e[0] * x1;
+        acc[2 * q + 1] += a[1] * x0 + e[1] * x1;
+      }
+    }
+  }
+  // s (64 values, into sv) from the threads' sums, in a fixed order
+  T* part = ring;   // backward: 32 x 64 partial sums
+  __syncthreads();  // the ring is read
+  if (fwd) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T v = acc[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if (tid % 8 == 0) sv[r0 + 32 * h] = v;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      part[r0 * BP + c0 + 16 * q] = acc[2 * q];
+      part[r0 * BP + c0 + 16 * q + 1] = acc[2 * q + 1];
+    }
+  }
+  __syncthreads();
+
+  if (!fwd) {   // sv = y_j - s
+    if (warp == 0) take_panel(ypub + (long long)o * WPV, sy + 2 * BP);
+    T v = T(0);
+    if (tid < BP)
+      for (int g = 0; g < 32; ++g) v += part[g * BP + tid];
     __syncthreads();
-    if (tid == 0) atomicExch(done + 1, npan - j);
+    if (tid < BP) sv[tid] = sy[2 * BP + tid] - v;
+  } else if (tid < BP) {   // sv = b_j - s
+    sv[tid] = Bm[b * b_bs + (long long)row * n + o + tid] - sv[tid];
+  }
+  if (has_m) {   // the chain's step: sv -= L[j, j-1] y_{j-1}, or
+                 // L[j+1, j]' x_{j+1} backward
+    T* buf = sy + 3 * BP;
+    if (warp == 0)
+      take_panel(get + (long long)(fwd ? o - BP : o + BP) * WPV, buf);
+    __syncthreads();
+    T r = T(0);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) r += lv[q] * buf[seg + q];
+    r = quad_sum(r);
+    if (tid % 4 == 0) sv[rc] -= r;
+  }
+  __syncthreads();
+  T c = T(0);        // Dinv[j] sv (forward) or Dinv[j]' sv (backward)
+#pragma unroll
+  for (int q = 0; q < 16; ++q) c += dv[q] * sv[seg + q];
+  const T out = quad_sum(c);
+  if (tid % 4 == 0) {
+    publish((fwd ? ypub : xpub) + (long long)(o + rc) * WPV, out);
+    if (!fwd) X[(b * nrhs + row) * (long long)n + o + rc] = out;
   }
 }
 
@@ -1624,6 +1995,21 @@ int launch_schur_factor(void* L, void* Dinv, void* deq, int B, int n,
   if (e != cudaSuccess) return (int)e;
   schur_factor_kernel<T><<<B, NT, smem, (cudaStream_t)stream>>>(
       (T*)L, (T*)Dinv, (T*)deq, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_schur_chol64(const void* P, const void* Gt, long long gt_bs,
+                        const void* dinv2, long long d_bs, void* L,
+                        void* Dinv, void* deq, int B, int m, int vec,
+                        int smem, void* stream) {
+  if (B == 0) return 0;
+  if (smem != SMEM_FAC<T>) return ERR_LAYOUT;
+  cudaError_t e = set_smem(schur_chol64_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  schur_chol64_kernel<T><<<B, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)P, (const T*)Gt, gt_bs, (const T*)dinv2, d_bs, (T*)L,
+      (T*)Dinv, (T*)deq, m, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1869,17 +2255,61 @@ int launch_panel_factor(void* L, void* Dinv, void* deq, void* bad, int B,
   return (int)(e != cudaSuccess ? e : j);
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault);
+    if (e != cudaSuccess) return e;
+    if (!p) return cudaErrorNotSupported;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// the tensor map of L could not be made
+constexpr int ERR_TMAP = -3;
+
 template <typename T>
 int launch_panel_solve(const void* L, const void* Dinv, const void* Bm,
                        long long b_bs, void* X, int B, int n, int nrhs,
-                       void* sync, int smem, void* stream) {
+                       void* scratch, long long scratch_bytes, int smem,
+                       void* stream) {
   if (B == 0 || nrhs == 0) return 0;
-  if (smem != SMEM_PSOLVE<T>) return ERR_LAYOUT;
   const int chains = B * nrhs;
+  if (smem != SMEM_PSOLVE<T> || scratch_bytes != psolve_scratch<T>(chains, n))
+    return ERR_LAYOUT;
+  EncodeTiled enc;
+  cudaError_t e = encode_tiled(&enc);
+  if (e != cudaSuccess) return (int)e;
+  // L as a (B n) x n row-major matrix, read in 64x64 boxes
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)B * n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * sizeof(T)};
+  const cuuint32_t box[2] = {BP, BP}, unit[2] = {1, 1};
+  if (enc(&map, sizeof(T) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+          2, const_cast<void*>(L), dims, strides, box, unit,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return ERR_TMAP;
+  if ((e = set_smem(panel_solve_kernel<T>, smem)) != cudaSuccess) return (int)e;
   panel_solve_kernel<T><<<chains * 2 * (n / BP), NT, smem,
                           (cudaStream_t)stream>>>(
-      (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs,
-      chains, (int*)sync);
+      map, (const T*)L, (const T*)Dinv, (const T*)Bm, b_bs, (T*)X, n, nrhs,
+      chains, (unsigned char*)scratch);
   return (int)cudaGetLastError();
 }
 
@@ -1899,6 +2329,13 @@ extern "C" {
                          int smem, void* stream) {                            \
     return launch_schur_factor<T>(L, Dinv, deq, B, n, smem, stream);          \
   }                                                                           \
+  int schur_chol64_##SFX(const void* P, const void* Gt, long long gt_bs,     \
+                         const void* dinv2, long long d_bs, void* L,          \
+                         void* Dinv, void* deq, int B, int m, int vec,        \
+                         int smem, void* stream) {                            \
+    return launch_schur_chol64<T>(P, Gt, gt_bs, dinv2, d_bs, L, Dinv, deq,   \
+                                  B, m, vec, smem, stream);                   \
+  }                                                                           \
   int chol_solve_##SFX(const void* L, const void* Dinv, const void* Bm,       \
                        long long b_bs, void* X, int B, int n, int nrhs,       \
                        int smem, void* stream) {                              \
@@ -1912,9 +2349,10 @@ extern "C" {
   }                                                                           \
   int panel_solve_##SFX(const void* L, const void* Dinv, const void* Bm,      \
                         long long b_bs, void* X, int B, int n, int nrhs,      \
-                        void* sync, int smem, void* stream) {                 \
-    return launch_panel_solve<T>(L, Dinv, Bm, b_bs, X, B, n, nrhs, sync,      \
-                                 smem, stream);                               \
+                        void* scratch, long long scratch_bytes, int smem,     \
+                        void* stream) {                                       \
+    return launch_panel_solve<T>(L, Dinv, Bm, b_bs, X, B, n, nrhs, scratch,   \
+                                 scratch_bytes, smem, stream);                \
   }
 
 FUSED_CHOL_EXPORTS(float, f32)

@@ -25,7 +25,9 @@ version; given CUDA tensors it launches its kernel or raises.  Each
 wrapper counts its calls that launch on the card in
 ``<wrapper>.launches``, and its calls per device kernel in
 ``<wrapper>.kernels`` (`factor_kernel_counts`, `solve_kernel_counts`).
-A factor call launches schur_assemble and then either schur_factor (one
+A factor call at n = 64 is one launch, schur_chol64: one block per
+instance assembles S, factors and inverts it in shared memory.  At larger
+n it launches schur_assemble and then either schur_factor (one
 block per instance) or, for a batch much smaller than the card's SM
 count, panel_factor: the same factor as a host loop of launches that
 each spread one panel step over the grid.  In f64 schur_assemble and
@@ -35,9 +37,9 @@ trailing update on a second stream (a lookahead; it joins the caller's
 stream before the call returns).  A solve call launches
 solve_few or solve_many by the number of right-hand sides, or, for few
 (instance, right-hand side) pairs, panel_solve: one block per (pair,
-panel, sweep).  `launch_counts` also counts the calls of each of the two
-small-batch kernels.  `launch_config` gives each call's launches, grids
-and shared memory.
+panel, sweep).  `launch_counts` also counts the calls of schur_chol64
+and of each of the two small-batch kernels.  `launch_config` gives each
+call's launches, grids and shared memory.
 
 A pivot <= 0 or not finite poisons the whole instance with NaN, in the
 kernels and the plain versions alike; the solvers read NaN as a
@@ -112,6 +114,7 @@ ASM_KC = 16       # schur_assemble k-chunk
 ASM_STAGES = 3    # schur_assemble cp.async ring depth
 FEW_RHS = 8       # chol_solve: nrhs <= FEW_RHS takes the mat-vec kernel
 _ERR_LAYOUT = -2  # a launcher's return: launch_config disagrees with it
+_ERR_TMAP = -3    # panel_solve: the driver refused L's tensor map
 
 # The small-batch path: a factor call takes panel_factor when
 # SMALL_B_SHARE * B <= the device's SM count and n >= PANEL_FACTOR_MIN_N,
@@ -134,6 +137,15 @@ TRAIL_KC = 16     # panel_factor: trail_update's k-chunk (f32)
 DMMA_KC = 32
 DMMA_STAGES = 3
 DMMA_SHAPE = "m16n8k8"
+# n == BP: one launch, schur_chol64, assembles S by k-chunks of CHOL64_KC
+# (a CHOL64_STAGES-deep cp.async ring) and factors it in shared memory
+CHOL64_KC = 32
+CHOL64_STAGES = 3
+# panel_solve: L's tiles stream through a ring of PSOLVE_RING 64x64 slots
+# of shared memory; its scratch holds a ticket counter and the published
+# values, 8 bytes a value in f32 and 16 in f64 (csrc/fused_chol.cu's
+# layout)
+PSOLVE_RING = 4
 
 
 def _dmma_smem():
@@ -151,14 +163,26 @@ def small_batch(kind, B, n, k, sms):
     return bool(sms) and SMALL_B_SHARE * B * k <= sms and n >= min_n
 
 
+def _factor_smem(esize):
+    """Shared memory of schur_factor, panel_diag and schur_chol64, in
+    bytes: three 64x64 tiles with their row pad, and one column."""
+    return (3 * BP * (BP + 16 // esize) + BP) * esize
+
+
+def psolve_scratch(chains, n, esize):
+    """Bytes of panel_solve's zeroed scratch for `chains` (instance,
+    right-hand side) pairs at n."""
+    return 128 + chains * 2 * n * 2 * esize
+
+
 def _panel_smem(esize):
     """Shared memory of panel_factor's kernels that use it, in bytes."""
     tile_words = BP * (BP + 16 // esize)
     trail = _dmma_smem() if esize == 8 else \
         (2 * 2 * TRAIL_KC * (TRAIL_TILE + 4)
          + TRAIL_TILE * (TRAIL_TILE + 4)) * esize
-    return dict(diag=(3 * tile_words + BP) * esize,
-                tile=2 * tile_words * esize, trail=trail)
+    return dict(diag=_factor_smem(esize), tile=2 * tile_words * esize,
+                trail=trail)
 
 
 def _panel_factor_plan(B, n, esize, equilibrate):
@@ -295,18 +319,26 @@ def _panel_factor_codes(B, n, esize, equilibrate):
 
 
 def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
-                  equilibrate=False):
+                  equilibrate=False, chol64=True):
     """The device launches of one wrapper call, as csrc/fused_chol.cu lays
     them out: a list of dicts with the kernel's name, its grid (blocks of
     256 threads), its output tile and its dynamic shared memory in bytes.
 
-    kind "factor" (m_or_nrhs = m): schur_assemble, one block per
+    kind "factor" (m_or_nrhs = m): at n == BP one launch, schur_chol64,
+    one block per instance (`kc`, `stages`: its k-chunk and ring depth).
+    It is bound by issue, not bytes: S is assembled in registers over
+    k-chunks of Gt and factored in shared memory, so it never goes through
+    device memory; on an H100 (700 W) row 5 (B = 1024, m = 400, f32) takes
+    0.18-0.19 ms against a 0.044 ms bound and 0.40 ms for the two
+    launches it replaces.  At larger n schur_assemble, one block per
     (instance, lower 128-wide tile of S), then schur_factor, one block per
     instance.  kind "solve" (m_or_nrhs = nrhs): solve_few, one block per
     (instance, right-hand side), for nrhs <= FEW_RHS; else solve_many, one
     block per (instance, 64 right-hand sides).  esize is the element size
     in bytes.  No block's shared memory depends on n: a block holds one
-    panel, never a whole right-hand side.
+    panel, never a whole right-hand side.  `chol64=False` gives the
+    two-launch layout at n == BP too, as `_assemble` and `_factor` launch
+    it (a factor call at n == BP does not; chip_smoke.py times it there).
 
     In f64 the assembly runs on the FP64 tensor cores and its entry also
     gives its k-chunk (`kc`), ring depth (`stages`) and mma shape
@@ -321,7 +353,14 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
     deq and scale S.  In f64 each launch also names its stream and the
     events it waits for and records, and each trailing update is split
     in two (`_panel_factor_plan`).  A solve is one panel_solve launch: one
-    block per (instance, right-hand side, 64-row panel, sweep).
+    block per (instance, right-hand side, 64-row panel, sweep), with its
+    ring of L's tiles (`ring` slots, each filled by one TMA copy) and the
+    bytes of its zeroed scratch (`scratch`, `psolve_scratch`).  It is
+    bound by its chain of 2 n/64 steps, each of which every running block
+    must keep up with by reading one tile: values are handed on with
+    their tags in one word, with no fence, and the tiles stream by TMA.
+    On an H100 (700 W) at n = 10,240 it takes 0.57 / 0.40 ms (f64 / f32)
+    against a 0.23 / 0.11 ms bound, and 1.64 / 1.03 ms before.
 
     Raises ValueError when n is not a multiple of BP, or a block needs
     more than `smem` bytes (the device's opt-in shared memory per
@@ -329,7 +368,11 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
     _check_n(n)
     vw = 16 // esize                 # elements in a 16-byte copy
     tile_words = BP * (BP + vw)      # a 64x64 tile with its row pad
-    if kind == "factor":
+    if kind == "factor" and n == BP and chol64:
+        out = [dict(kernel="schur_chol64", grid=B, tile=BP,
+                    smem=_factor_smem(esize), kc=CHOL64_KC,
+                    stages=CHOL64_STAGES)]
+    elif kind == "factor":
         t = -(-n // ASM_TILE)
         if esize == 8:
             asm = dict(smem=_dmma_smem(), kc=DMMA_KC, stages=DMMA_STAGES,
@@ -344,12 +387,14 @@ def launch_config(kind, B, n, m_or_nrhs, esize, smem, sms=0,
             out += _panel_factor_plan(B, n, esize, equilibrate)
         else:
             out.append(dict(kernel="schur_factor", grid=B, tile=BP,
-                            smem=(3 * tile_words + BP) * esize))
+                            smem=_factor_smem(esize)))
     elif kind == "solve":
         nrhs = m_or_nrhs
         if nrhs <= FEW_RHS and small_batch(kind, B, n, nrhs, sms):
             out = [dict(kernel="panel_solve", grid=B * nrhs * 2 * (n // BP),
-                        tile=BP, smem=2 * BP * esize)]
+                        tile=BP, ring=PSOLVE_RING,
+                        smem=128 + (PSOLVE_RING * BP * BP + 5 * BP) * esize,
+                        scratch=psolve_scratch(B * nrhs, n, esize))]
         elif nrhs <= FEW_RHS:
             out = [dict(kernel="solve_few", grid=B * nrhs, tile=1,
                         smem=17 * BP * esize)]
@@ -384,6 +429,9 @@ def _kernels():
             f = getattr(lib, "schur_factor_" + sfx)
             f.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             f.restype = ci
+            f = getattr(lib, "schur_chol64_" + sfx)
+            f.argtypes = [vp, vp, ll, vp, ll, vp, vp, vp, ci, ci, ci, ci, vp]
+            f.restype = ci
             f = getattr(lib, "chol_solve_" + sfx)
             f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, ci, vp]
             f.restype = ci
@@ -392,7 +440,7 @@ def _kernels():
                           vp]
             f.restype = ci
             f = getattr(lib, "panel_solve_" + sfx)
-            f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, vp, ci, vp]
+            f.argtypes = [vp, vp, vp, ll, vp, ci, ci, ci, vp, ll, ci, vp]
             f.restype = ci
         for f in (lib.smem_optin, lib.sm_count):
             f.argtypes = [ci, ctypes.POINTER(ci)]
@@ -454,8 +502,17 @@ def _run(name, t, *args):
     if err == _ERR_LAYOUT:
         raise RuntimeError(f"{name}: launch_config disagrees with "
                            f"csrc/fused_chol.cu")
+    if err == _ERR_TMAP:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused L")
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _vec(Gt, gt_bs, d2, d_bs):
+    """Whether Gt's rows and dinv2 can be copied in 16-byte pieces."""
+    vw = 16 // Gt.element_size()
+    return int(Gt.shape[-1] % vw == 0 and gt_bs % vw == 0 and d_bs % vw == 0
+               and Gt.data_ptr() % 16 == 0 and d2.data_ptr() % 16 == 0)
 
 
 def _assemble(P3, Gt, gt_bs, d2, d_bs, L):
@@ -463,14 +520,11 @@ def _assemble(P3, Gt, gt_bs, d2, d_bs, L):
     L (the first of the factor's two launches)."""
     Bsz, n, _ = P3.shape
     m = Gt.shape[-1]
-    esize = P3.element_size()
-    cfg = launch_config("factor", Bsz, n, m, esize,
-                        _smem_optin(P3.device))[0]
-    vw = 16 // esize
-    vec = int(m % vw == 0 and gt_bs % vw == 0 and d_bs % vw == 0
-              and Gt.data_ptr() % 16 == 0 and d2.data_ptr() % 16 == 0)
+    cfg = launch_config("factor", Bsz, n, m, P3.element_size(),
+                        _smem_optin(P3.device), chol64=False)[0]
     _run("schur_assemble", P3, P3.data_ptr(), n * n, Gt.data_ptr(), gt_bs,
-         d2.data_ptr(), d_bs, L.data_ptr(), Bsz, n, m, vec, cfg["smem"])
+         d2.data_ptr(), d_bs, L.data_ptr(), Bsz, n, m,
+         _vec(Gt, gt_bs, d2, d_bs), cfg["smem"])
 
 
 def _factor(L, Dinv, deq):
@@ -480,7 +534,7 @@ def _factor(L, Dinv, deq):
     Bsz, n, _ = L.shape
     cfg = launch_config("factor", Bsz, n, 1, L.element_size(),
                         _smem_optin(L.device), _sms(L.device),
-                        deq is not None)[1:]
+                        deq is not None, chol64=False)[1:]
     dq = deq.data_ptr() if deq is not None else None
     if cfg[0]["kernel"] == "schur_factor":
         _run("schur_factor", L, L.data_ptr(), Dinv.data_ptr(), dq, Bsz, n,
@@ -505,6 +559,14 @@ def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
     L = torch.empty((Bsz, n, n), **kw)
     Dinv = torch.empty((Bsz, n // BP, BP, BP), **kw)
     deq = torch.empty((Bsz, n), **kw) if equilibrate else None
+    if n == BP:
+        (cfg,) = launch_config("factor", Bsz, n, Gt.shape[-1],
+                               P3.element_size(), _smem_optin(P3.device))
+        _run("schur_chol64", P3, P3.data_ptr(), Gt.data_ptr(), gt_bs,
+             d2.data_ptr(), d_bs, L.data_ptr(), Dinv.data_ptr(),
+             deq.data_ptr() if equilibrate else None, Bsz, Gt.shape[-1],
+             _vec(Gt, gt_bs, d2, d_bs), cfg["smem"])
+        return L, Dinv, deq, "schur_chol64"
     _assemble(P3, Gt, gt_bs, d2, d_bs, L)
     return L, Dinv, deq, _factor(L, Dinv, deq)
 
@@ -523,10 +585,11 @@ def _launch_solve(L3, D4, Bm, b_bs, nrhs):
                         _smem_optin(L3.device), _sms(L3.device))[0]
     X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
     if cfg["kernel"] == "panel_solve":
-        sync = torch.zeros(1 + 2 * Bsz * nrhs, dtype=torch.int32,
-                           device=L3.device)
+        scratch = torch.zeros(cfg["scratch"] // 8, dtype=torch.int64,
+                              device=L3.device)
         _run("panel_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(),
-             b_bs, X.data_ptr(), Bsz, n, nrhs, sync.data_ptr(), cfg["smem"])
+             b_bs, X.data_ptr(), Bsz, n, nrhs, scratch.data_ptr(),
+             cfg["scratch"], cfg["smem"])
     else:
         _run("chol_solve", L3, L3.data_ptr(), D4.data_ptr(), Bm.data_ptr(),
              b_bs, X.data_ptr(), Bsz, n, nrhs, cfg["smem"])
@@ -645,9 +708,11 @@ WRAPPERS = (fused_schur_cholesky, fused_cholesky_solve,
             fused_schur_cholesky_batched, fused_cholesky_solve_batched)
 FACTOR_WRAPPERS = (fused_schur_cholesky, fused_schur_cholesky_batched)
 SOLVE_WRAPPERS = (fused_cholesky_solve, fused_cholesky_solve_batched)
-FACTOR_KERNELS = ("schur_factor", "panel_factor")
+FACTOR_KERNELS = ("schur_chol64", "schur_factor", "panel_factor")
 SOLVE_KERNELS = ("solve_few", "solve_many", "panel_solve")
 SMALL_BATCH_KERNELS = ("panel_factor", "panel_solve")
+# kernels whose calls launch_counts reports over both wrappers of a kind
+COUNTED_KERNELS = ("schur_chol64",) + SMALL_BATCH_KERNELS
 
 
 def reset_launch_counts():
@@ -660,10 +725,11 @@ def reset_launch_counts():
 
 
 def launch_counts():
-    """Calls of each wrapper that launched on the card, and calls of each
-    small-batch kernel (over both wrappers of its kind)."""
+    """Calls of each wrapper that launched on the card, and calls of
+    schur_chol64 and of each small-batch kernel (over both wrappers of
+    its kind)."""
     out = {w.__name__: w.launches for w in WRAPPERS}
-    for k in SMALL_BATCH_KERNELS:
+    for k in COUNTED_KERNELS:
         out[k] = sum(w.kernels.get(k, 0) for w in WRAPPERS)
     return out
 

@@ -122,13 +122,20 @@ def test_assembly_walk_matches_plain(panel_everywhere, n, m, per_instance):
 
 def test_f64_assembly_layout_fits_and_keeps_the_f32_one():
     """The DMMA ring fits an H100's shared memory at every n; the f32
-    assembly keeps the seed's layout and bytes."""
+    assembly keeps the seed's layout and bytes.  A factor call launches
+    the assembly first at n > 64 (at n = 64 schur_chol64 alone)."""
     for n in (64, 320, 10240):
-        f64 = fc.launch_config("factor", 1, n, 513, 8, H100_SMEM)[0]
-        f32 = fc.launch_config("factor", 1, n, 513, 4, H100_SMEM)[0]
+        f64 = fc.launch_config("factor", 1, n, 513, 8, H100_SMEM,
+                               chol64=False)[0]
+        f32 = fc.launch_config("factor", 1, n, 513, 4, H100_SMEM,
+                               chol64=False)[0]
         assert f64["smem"] == fc._dmma_smem() <= H100_SMEM
         assert f32 == dict(kernel="schur_assemble", grid=f64["grid"],
                            tile=128, smem=78528)
+        first = [fc.launch_config("factor", 1, n, 513, e, H100_SMEM)[0]
+                 for e in (8, 4)]
+        assert first == ([f64, f32] if n > 64 else
+                         [dict(c, kernel="schur_chol64") for c in first])
 
 
 # ---- the lookahead plan -------------------------------------------------
@@ -480,10 +487,14 @@ def _seed_f32_panel_plan(B, n, equilibrate):
 
 
 def _seed_f32_solve(B, n, nrhs, sms):
-    """The solve's f32 launch as the seed laid it out."""
+    """The solve's f32 launch as the seed laid it out; panel_solve's as
+    its redesign does: a ring of 4 dense 64x64 tiles, five panels of 64
+    and 128 bytes of alignment, and the zeroed scratch (a ticket, then 8
+    bytes a published value)."""
     if nrhs <= 8 and sms and 4 * B * nrhs <= sms and n >= 512:
         return [dict(kernel="panel_solve", grid=B * nrhs * 2 * (n // BP),
-                     tile=BP, smem=2 * BP * 4)]
+                     tile=BP, ring=4, smem=128 + (4 * BP * BP + 5 * BP) * 4,
+                     scratch=128 + B * nrhs * 2 * n * 8)]
     if nrhs <= 8:
         return [dict(kernel="solve_few", grid=B * nrhs, tile=1,
                      smem=17 * BP * 4)]
@@ -510,6 +521,11 @@ def test_f32_launch_config_is_the_seeds(row):
             got = fc.launch_config(kind, B, n, k, 4, H100_SMEM, sms, eq)
             if kind == "solve":
                 assert got == _seed_f32_solve(B, n, k, sms)
+                continue
+            if n == BP:   # one launch since the seed: schur_chol64
+                assert got == [dict(kernel="schur_chol64", grid=B, tile=BP,
+                                    smem=(3 * BP * (BP + 4) + BP) * 4,
+                                    kc=32, stages=3)]
                 continue
             assert got[0] == dict(kernel="schur_assemble",
                                   grid=B * t * (t + 1) // 2, tile=128,

@@ -255,13 +255,16 @@ def test_launch_config_few_many_threshold(nrhs, kernel):
 @pytest.mark.parametrize("esize", [4, 8])
 def test_launch_config_smem_independent_of_n(esize):
     """Every block holds one panel at most, never a whole right-hand
-    side: shared memory stays within an H100's at any n."""
+    side: each kernel's shared memory is the same at any n (n = 64 takes
+    schur_chol64 alone, larger n schur_assemble and schur_factor) and
+    stays within an H100's."""
     for kind, k in (("factor", 512), ("solve", 1), ("solve", 256)):
-        sizes = {tuple(c["smem"] for c in
-                       fc.launch_config(kind, 4, n, k, esize, H100_SMEM))
-                 for n in range(64, 8193, 64)}
-        assert len(sizes) == 1
-        assert max(next(iter(sizes))) <= H100_SMEM
+        sizes = {}
+        for n in range(64, 8193, 64):
+            for c in fc.launch_config(kind, 4, n, k, esize, H100_SMEM):
+                sizes.setdefault(c["kernel"], set()).add(c["smem"])
+        assert all(len(v) == 1 for v in sizes.values()), sizes
+        assert max(max(v) for v in sizes.values()) <= H100_SMEM
 
 
 def test_launch_config_has_no_n_cap():
@@ -276,3 +279,146 @@ def test_launch_config_refuses():
         fc.launch_config("solve", 1, 100, 1, 4, H100_SMEM)
     with pytest.raises(ValueError, match="shared memory"):
         fc.launch_config("solve", 1, 256, 256, 8, 48 * 1024)
+
+
+# ---- schur_chol64: the one-launch factor at n = 64 -------------------------
+
+@pytest.mark.parametrize("B", [1, 16, 1024])
+@pytest.mark.parametrize("esize", [4, 8])
+def test_launch_config_n64_is_one_launch(B, esize):
+    """n = 64 (rows 5 and 14) is one launch of schur_chol64, one block per
+    instance, within an H100's shared memory, with or without an SM count
+    or equilibration; n = 128 keeps the assembly and the factor apart."""
+    for sms in (0, 132):
+        for eq in (False, True):
+            (c,) = fc.launch_config("factor", B, 64, 400, esize, H100_SMEM,
+                                    sms, equilibrate=eq)
+            assert (c["kernel"], c["grid"], c["tile"]) == \
+                ("schur_chol64", B, 64)
+            assert c["smem"] <= H100_SMEM
+            assert c["kc"] == fc.CHOL64_KC
+    names = [c["kernel"] for c in
+             fc.launch_config("factor", B, 128, 400, esize, H100_SMEM)]
+    assert names == ["schur_assemble", "schur_factor"]
+
+
+def _tri_inv_walk(L):
+    """inv(L) for lower (B, 64, 64) L as diag_factor forms it: the 8x8
+    diagonal blocks' inverses, then X21 = -C^-1 (B A^-1) for the 2x2
+    blocks of sizes 16, 32 and 64."""
+    eye8 = torch.eye(8, dtype=L.dtype)
+    Li = torch.zeros_like(L)
+    for base in range(0, 64, 8):
+        blk = L[:, base:base + 8, base:base + 8]
+        Li[:, base:base + 8, base:base + 8] = torch.linalg.solve_triangular(
+            blk, eye8.expand_as(blk), upper=False)
+    for h in (8, 16, 32):
+        for base in range(0, 64, 2 * h):
+            a, c = slice(base, base + h), slice(base + h, base + 2 * h)
+            X = L[:, c, a] @ Li[:, a, a]
+            Li[:, c, a] = -(Li[:, c, c] @ X)
+    return Li
+
+
+def walk_chol64(P, Gt, dinv2, equilibrate=False, kc=fc.CHOL64_KC):
+    """schur_chol64's arithmetic in plain torch, step by step: S = P + Gt
+    diag(dinv2) Gt' summed over k-chunks of kc, dinv2 on the row side;
+    [equilibrate] S := D S D; the factor by 16-column sub-panels (the
+    sub-panel's columns minus those to their left, its 16x16 block's
+    Cholesky, the rows below by forward substitution); the inverse by
+    8x8 blocks and the 2x2 recursion.  A bad pivot makes the instance all
+    NaN.  Gt (B, 64, m) or shared (64, m); dinv2 (B, m)."""
+    B = P.shape[0]
+    Gt = Gt.expand(B, *Gt.shape[-2:]) if Gt.dim() == 2 else Gt
+    m = Gt.shape[-1]
+    S = torch.zeros_like(P)
+    for k0 in range(0, m, kc):
+        A = Gt[..., k0:k0 + kc]
+        S = S + (A * dinv2[:, None, k0:k0 + kc]) @ A.transpose(1, 2)
+    S = torch.tril(S + P)
+    deq = None
+    if equilibrate:
+        deq = 1.0 / torch.sqrt(torch.clamp(
+            torch.diagonal(S, dim1=1, dim2=2), min=1e-30))
+        S = S * deq[:, :, None] * deq[:, None, :]
+    L = S.clone()
+    bad = torch.zeros(B, dtype=torch.bool)
+    for q in range(0, 64, 16):
+        if q:
+            L[:, q:, q:q + 16] -= L[:, q:, :q] @ L[:, q:q + 16, :q].transpose(
+                1, 2)
+        D, info = torch.linalg.cholesky_ex(torch.tril(L[:, q:q + 16,
+                                                        q:q + 16]))
+        bad |= (info != 0) | ~torch.isfinite(D).all(-1).all(-1)
+        L[:, q:q + 16, q:q + 16] = D
+        L[:, q + 16:, q:q + 16] = torch.linalg.solve_triangular(
+            D.transpose(1, 2), L[:, q + 16:, q:q + 16], upper=True,
+            left=False)
+    L = torch.tril(L)
+    Dinv = _tri_inv_walk(L)[:, None]
+    L[bad] = float("nan")
+    Dinv[bad] = float("nan")
+    return (L, Dinv) if deq is None else (L, Dinv, deq)
+
+
+def _chol64_data(B, m, per_instance, seed):
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((B, 64, 64))
+    P = F @ F.transpose(0, 2, 1) / 64 + np.diag(rng.uniform(0.5, 1e3, 64))
+    Gt = rng.standard_normal((B, 64, m) if per_instance else (64, m))
+    d2 = rng.uniform(0.5, 2.0, (B, m))
+    return P, Gt, d2
+
+
+@pytest.mark.parametrize("per_instance", [True, False])
+@pytest.mark.parametrize("equilibrate", [False, True])
+def test_chol64_walk_matches_jax_reference(per_instance, equilibrate):
+    """The walk of schur_chol64 against cvxopt_tpu's fused_schur_cholesky
+    `_ref` (vmapped) in float64 at 1e-12 relative Frobenius, m = 157 (not
+    a multiple of the chunk, rows not 16-byte aligned).  Equilibrated: the
+    JAX reference of D P D and D Gt (D S D = D P D + (D Gt) diag(dinv2)
+    (D Gt)'), deq to 1e-13."""
+    from cvxopt_tpu.ops import pallas_chol as pc
+    B, m = 5, 157
+    P, Gt, d2 = _chol64_data(B, m, per_instance, seed=11)
+    got = walk_chol64(*_t(P, Gt, d2), equilibrate=equilibrate)
+    Pj, Gj, dj = jnp.asarray(P), jnp.asarray(Gt), jnp.asarray(d2)
+    gax = 0 if per_instance else None
+    if equilibrate:
+        S = jax.vmap(lambda p, g, d: p + (g * d) @ g.T,
+                     in_axes=(0, gax, 0))(Pj, Gj, dj)
+        deq = 1.0 / jnp.sqrt(jnp.maximum(jnp.diagonal(S, axis1=1, axis2=2),
+                                         1e-30))
+        Pj = Pj * deq[:, :, None] * deq[:, None, :]
+        Gj = (Gj if per_instance else Gj[None]) * deq[:, :, None]
+        gax = 0
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(deq),
+                                   rtol=1e-13)
+    Lr, Dr = jax.vmap(pc.fused_schur_cholesky_ref,
+                      in_axes=(0, gax, 0))(Pj, Gj, dj)
+    rel = lambda a, b: float(np.linalg.norm(a.numpy() - np.asarray(b))
+                             / np.linalg.norm(np.asarray(b)))
+    assert rel(got[0], Lr) <= 1e-12
+    assert rel(got[1], Dr) <= 1e-12
+    # and the port's plain version, which the card's kernel is held to
+    ref = fc.fused_schur_cholesky_ref(*_t(P, Gt, d2), equilibrate)
+    for a, b in zip(got, ref):
+        assert float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)) <= 1e-12
+
+
+def test_chol64_walk_poisons_only_the_bad_instance():
+    """A pivot that fails in the third sub-panel makes that instance all
+    NaN in L and Dinv, as the plain version does; the others are
+    unchanged."""
+    P, Gt, d2 = _chol64_data(3, 40, True, seed=12)
+    P[1, 40, 40] = -1e6
+    L, Dinv = walk_chol64(*_t(P, Gt, d2))
+    Lr, Dr = fc.fused_schur_cholesky_ref(*_t(P, Gt, d2))
+    assert torch.isnan(L[1]).all() and torch.isnan(Dinv[1]).all()
+    assert torch.isnan(Lr[1]).all()
+    for k in (0, 2):
+        assert torch.allclose(L[k], Lr[k], rtol=0, atol=1e-12 *
+                              float(Lr[k].abs().max()))
+        assert torch.allclose(Dinv[k], Dr[k], rtol=0, atol=1e-12 *
+                              float(Dr[k].abs().max()))

@@ -167,6 +167,54 @@ def test_solve_at_n_25600(cuda_device):
     assert _rel(x, xr) <= 1e-12
 
 
+# ---- schur_chol64: the one-launch factor at n = 64 ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("equilibrate", [False, True])
+@pytest.mark.parametrize("B,m", [(1, 1), (16, 157), (1024, 400)])
+def test_chol64_matches_plain_on_card(cuda_device, dtype, tol, equilibrate,
+                                      B, m):
+    """schur_chol64 through both factor wrappers (per-instance and shared
+    Gt) at rows 5 (B = 1024, m = 400) and 14 (B = 16, m = 157: rows not
+    16-byte aligned) and at B = 1: L, Dinv (and deq) within 1e-5 / 1e-12
+    of the plain version, L's strict upper triangle 0, one launch of
+    schur_chol64 a call."""
+    rng = np.random.default_rng(B + m)
+    kw = dict(dtype=dtype, device=cuda_device)
+    P, Gt, Gtb, d2 = _problem(rng, B, 64, m, kw)
+    fc.reset_launch_counts()
+    for factor, _, G in _pairs(Gt, Gtb):
+        out = factor(P, G, d2, equilibrate=equilibrate)
+        ref = fc.fused_schur_cholesky_ref(P, G, d2, equilibrate)
+        for a, b in zip(out, ref):
+            assert _rel(a, b) <= tol
+        assert bool((torch.triu(out[0], 1) == 0).all())
+    counts = fc.factor_kernel_counts()
+    assert fc.launch_counts()["schur_chol64"] == 2
+    assert all(c["schur_factor"] == 0 and c["panel_factor"] == 0
+               for c in counts.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol64_non_pd_instance_between_pd_ones(cuda_device, dtype):
+    """At n = 64, B = 16: instance 5, not PD, comes back all NaN in L and
+    Dinv; the others equal, bit for bit, their factor without it."""
+    rng = np.random.default_rng(21)
+    kw = dict(dtype=dtype, device=cuda_device)
+    B, m = 16, 157
+    P, Gt, Gtb, d2 = _problem(rng, B, 64, m, kw)
+    P[5, 40, 40] = -1e6
+    keep = [k for k in range(B) if k != 5]
+    for factor, _, G in _pairs(Gt, Gtb):
+        L, D = factor(P, G, d2)
+        assert bool(torch.isnan(L[5]).all() and torch.isnan(D[5]).all())
+        Gk = G[keep].contiguous() if G.dim() == 3 else G
+        L2, D2 = factor(P[keep].contiguous(), Gk, d2[keep].contiguous())
+        assert torch.equal(L[keep], L2) and torch.equal(D[keep], D2)
+
+
 # ---- the small-batch kernels (panel_factor, panel_solve) -------------------
 
 def _kernel_of(kind, B, n, k, dtype, device):
@@ -232,6 +280,43 @@ def test_small_batch_kernels_match_plain_on_card(cuda_device, monkeypatch,
         xr = fc.fused_cholesky_solve_ref(out[0], out[1], rhs)
         assert _rel(x, xr) <= tol, nrhs
     assert fc.launch_counts()["panel_solve"] == 2
+
+
+def _unit_lower_batch(B, n, g, kw):
+    """B well-conditioned unit lower-triangular factors and their Dinv
+    (chip_smoke.unit_lower, one per instance)."""
+    from chip_smoke import unit_lower
+    pairs = [unit_lower(n, g, kw) for _ in range(B)]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("n,pairs", [
+    (512, [(1, 1), (33, 1), (1, 4), (8, 4)]),
+    (1280, [(1, 1), (33, 1), (1, 4), (8, 4)]),
+    (10240, [(1, 1), (1, 4)])])
+def test_panel_solve_matches_plain_on_card(cuda_device, dtype, tol, n,
+                                           pairs):
+    """panel_solve against the plain version at (B, nrhs) with B nrhs up
+    to 33, on well-conditioned unit lower factors: within 1e-5 / 1e-12,
+    and two runs give equal bits."""
+    kw = dict(dtype=dtype, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    for B, nrhs in pairs:
+        assert _kernel_of("solve", B, n, nrhs, dtype, cuda_device) == \
+            "panel_solve"
+        L, D = _unit_lower_batch(B, n, g, kw)
+        rhs = torch.randn((B, nrhs, n), generator=g, **kw)
+        fc.reset_launch_counts()
+        x = fc.fused_cholesky_solve(L, D, rhs)
+        x2 = fc.fused_cholesky_solve(L, D, rhs)
+        assert fc.launch_counts()["panel_solve"] == 2
+        assert _rel(x, fc.fused_cholesky_solve_ref(L, D, rhs)) <= tol, \
+            (B, nrhs)
+        assert torch.equal(x, x2), (B, nrhs)
+        del L, D
 
 
 @pytest.mark.gpu

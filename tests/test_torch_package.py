@@ -245,12 +245,13 @@ def test_cpu_run_does_not_count_launches():
                             torch.ones(1, 64), device="cpu")
     assert fc.launch_counts() == {
         **{w.__name__: 0 for w in fc.WRAPPERS},
-        "panel_factor": 0, "panel_solve": 0}
+        "schur_chol64": 0, "panel_factor": 0, "panel_solve": 0}
     assert fc.solve_kernel_counts() == {
         w.__name__: {"solve_few": 0, "solve_many": 0, "panel_solve": 0}
         for w in fc.SOLVE_WRAPPERS}
     assert fc.factor_kernel_counts() == {
-        w.__name__: {"schur_factor": 0, "panel_factor": 0}
+        w.__name__: {"schur_chol64": 0, "schur_factor": 0,
+                     "panel_factor": 0}
         for w in fc.FACTOR_WRAPPERS}
 
 

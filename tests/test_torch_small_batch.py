@@ -63,14 +63,21 @@ def panel_everywhere(monkeypatch):
 @pytest.mark.parametrize("row", sorted(ROWS_ONE_BLOCK))
 def test_rows_keep_one_block_per_instance(row):
     """Rows 1-11 and 17, whose batches fill the card, and rows 12-15,
-    whose n lies below the thresholds measured on the card, keep today's
-    layout, the one launch_config gives without an SM count."""
+    whose n lies below the thresholds measured on the card, keep one
+    block per instance, the layout launch_config gives without an SM
+    count: the n = 64 factor rows (5 and 14) in one launch of
+    schur_chol64, the other factor rows in schur_factor, the solves in
+    solve_few or solve_many."""
     kind, B, n, k = ROWS_ONE_BLOCK[row]
     for esize in (4, 8):
         new = fc.launch_config(kind, B, n, k, esize, H100_SMEM, H100_SMS)
         assert new == fc.launch_config(kind, B, n, k, esize, H100_SMEM)
-        assert new[-1]["kernel"] in ("schur_factor", "solve_few",
-                                     "solve_many")
+        if kind == "factor" and n == fc.BP:
+            assert [c["kernel"] for c in new] == ["schur_chol64"]
+            assert new[0]["grid"] == B
+        else:
+            assert new[-1]["kernel"] in ("schur_factor", "solve_few",
+                                         "solve_many")
 
 
 @pytest.mark.parametrize("row", sorted(ROWS_SMALL_BATCH))
@@ -103,6 +110,26 @@ def test_the_threshold_follows_the_sm_count():
     assert fc.small_batch("solve", 1, fc.PANEL_SOLVE_MIN_N, 1, H100_SMS)
     assert not fc.small_batch("solve", 1, fc.PANEL_SOLVE_MIN_N - fc.BP, 1,
                               H100_SMS)
+
+
+@pytest.mark.parametrize("B,n,nrhs,esize,again", [
+    (1024, 320, 1, 8, False),    # row 10: 0.33 MB of tiles an instance
+    (1024, 320, 64, 8, False),   # row 11
+    (8, 1248, 1, 8, False),      # row 18: 6.0 MB an instance, 48 MB in all
+    (1, 10240, 1, 8, True),      # row 20 f64: 417 MB
+    (1, 10240, 1, 4, True)])     # row 20 f32: 208 MB
+def test_solve_bound_reads_again_only_what_l2_cannot_keep(B, n, nrhs,
+                                                          esize, again):
+    """chip_smoke._solve_bound's bytes: L's off-diagonal tiles once, and a
+    second time for the backward sweep only the part of an instance's
+    tiles beyond the L2."""
+    import chip_smoke as cs
+    tiles = n * (n - 64) / 2 * esize
+    rest = (n * 64 + 2 * nrhs * n) * esize
+    bound, by = cs._solve_bound(B, n, nrhs, False, esize)
+    want = B * (tiles + rest + (tiles - cs.L2_BYTES if again else 0))
+    assert by == "bytes"
+    assert bound == pytest.approx(want / cs.PEAK_BYTES * 1e3, rel=1e-12)
 
 
 def test_factor_plan_at_n_10240():
@@ -198,32 +225,54 @@ def walk_factor(P, Gt, dinv2, plan):
 
 
 def walk_solve(L, Dinv, B_rows, plan):
-    """Run panel_solve's blocks in ticket order; each asserts that what
-    it reads was published by lower tickets, as the kernel waits for."""
+    """Run panel_solve's blocks in ticket order, each as the kernel does
+    it.  Forward block j: s = sum_{k < j-1} L[j, k] y_k, then the chain's
+    step y_j = Dinv[j] ((b_j - s) - L[j, j-1] y_{j-1}); backward block j:
+    s = sum_{k > j+1} L[k, j]' x_k, then x_j = Dinv[j]' ((y_j - s) -
+    L[j+1, j]' x_{j+1}).  Every panel a block reads was published by a
+    block with a lower ticket, which has started: the kernel waits for
+    nothing else."""
     BP = fc.BP
     (c,) = plan
     assert c["kernel"] == "panel_solve"
     B, nrhs, n = B_rows.shape
     npan, chains = n // BP, B * nrhs
     X = torch.full_like(B_rows, float("nan"))
-    fwd, bwd = [0] * chains, [0] * chains
+    pub = {}        # (chain, sweep, panel) -> (ticket, values)
+
+    def take(t, chain, sweep, k):
+        tk, v = pub[chain, sweep, k]
+        assert tk < t
+        return v
+
     for t in range(c["grid"]):
         chain, pos = t % chains, t // chains
         b, r = divmod(chain, nrhs)
-        x = X[b, r]
+        Lb, Db = L[b], Dinv[b]
         if pos < npan:
-            j, o = pos, pos * BP
-            assert fwd[chain] == j
-            s = L[b, o:o + BP, :o] @ x[:o]
-            x[o:o + BP] = Dinv[b, j] @ (B_rows[b, r, o:o + BP] - s)
-            fwd[chain] = j + 1
+            j = pos
+            o = j * BP
+            s = torch.zeros(BP, dtype=L.dtype)
+            for k in range(j - 1):
+                s = s + Lb[o:o + BP, k * BP:(k + 1) * BP] @ take(t, chain,
+                                                                 "y", k)
+            v = B_rows[b, r, o:o + BP] - s
+            if j > 0:
+                v = v - Lb[o:o + BP, o - BP:o] @ take(t, chain, "y", j - 1)
+            pub[chain, "y", j] = (t, Db[j] @ v)
         else:
             j = 2 * npan - 1 - pos
             o = j * BP
-            assert fwd[chain] == npan and bwd[chain] == npan - 1 - j
-            s = L[b, o + BP:, o:o + BP].transpose(0, 1) @ x[o + BP:]
-            x[o:o + BP] = Dinv[b, j].transpose(0, 1) @ (x[o:o + BP] - s)
-            bwd[chain] = npan - j
+            s = torch.zeros(BP, dtype=L.dtype)
+            for k in range(npan - 1, j + 1, -1):
+                s = s + Lb[k * BP:(k + 1) * BP, o:o + BP].T @ take(
+                    t, chain, "x", k)
+            v = take(t, chain, "y", j) - s
+            if j + 1 < npan:
+                v = v - Lb[o + BP:o + 2 * BP, o:o + BP].T @ take(
+                    t, chain, "x", j + 1)
+            pub[chain, "x", j] = (t, Db[j].T @ v)
+            X[b, r, o:o + BP] = Db[j].T @ v
     return X
 
 
@@ -324,3 +373,26 @@ def test_walks_match_pallas_interpret(panel_everywhere, pallas_interpret):
                                atol=3e-6 * scale)
     np.testing.assert_allclose(Dinv[0].numpy(), np.asarray(Dk), atol=1e-5)
     np.testing.assert_allclose(x[0].numpy(), np.asarray(xk), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,nrhs", [(1, 1), (2, 4)])
+def test_solve_walk_matches_jax_reference_f64(panel_everywhere, B, nrhs):
+    """float64 at n = 640 (ten panels a sweep): the walk of panel_solve's
+    reordered chain against the JAX package's solve reference
+    (cvxopt_tpu.ops.pallas_chol.fused_cholesky_solve_ref, vmapped) on its
+    own factor, at 1e-12 relative Frobenius.  (The Pallas kernel itself
+    takes its dots in float32, so float64 is held to its reference.)"""
+    import jax
+    from cvxopt_tpu.ops import pallas_chol as pc
+    n = 640
+    P, Gt, d2 = _data(B, n, 64, seed=13)
+    Lr, Dr = jax.vmap(pc.fused_schur_cholesky_ref)(
+        jnp.asarray(P.numpy()), jnp.asarray(Gt.numpy()),
+        jnp.asarray(d2.numpy()))
+    rhs = np.random.default_rng(14).standard_normal((B, nrhs, n))
+    xr = jax.vmap(pc.fused_cholesky_solve_ref)(Lr, Dr, jnp.asarray(rhs))
+    plan = fc.launch_config("solve", B, n, nrhs, 8, H100_SMEM, H100_SMS)
+    assert plan[0]["scratch"] == fc.psolve_scratch(B * nrhs, n, 8)
+    x = walk_solve(torch.tensor(np.asarray(Lr)),
+                   torch.tensor(np.asarray(Dr)), torch.as_tensor(rhs), plan)
+    assert _rel(x, torch.tensor(np.asarray(xr))) <= 1e-12

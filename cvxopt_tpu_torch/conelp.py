@@ -45,6 +45,7 @@ from cvxopt_tpu_torch import kkt as kktmod
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
+from cvxopt_tpu_torch.trace import span, spanned
 from cvxopt_tpu_torch._tree import (
     _col, _tmap, _leaves, _where, _tdot, _tnorm, _tzeros, _tneg, _tscale,
     _taxpy, _tadd, _tsub, _tnorm_parts, _take, _is_operator,
@@ -88,14 +89,18 @@ EXPON = 3
 
 def _run_loop(st, body, syncs):
     """Iterate `body` while any instance is running; instances that are
-    not keep their state."""
+    not keep their state.  Each pass is a `cvx.ipm.pass` span; each
+    check of the status, counted in ``syncs[0]``, a `cvx.ipm.sync`."""
     while True:
         running = st["status"] == STATUS_RUNNING
         syncs[0] += 1
-        if not bool(running.any()):        # the one host sync per pass
+        with span("cvx.ipm.sync"):
+            more = bool(running.any())     # the one host sync per pass
+        if not more:
             return st
-        new = body(st)
-        st = {k: _where(running, new[k], st[k]) for k in st}
+        with span("cvx.ipm.pass"):
+            new = body(st)
+            st = {k: _where(running, new[k], st[k]) for k in st}
 
 
 def _restart_state(st1, state0, keys, maxiters):
@@ -115,14 +120,19 @@ def _restart_state(st1, state0, keys, maxiters):
     return st2
 
 
-def rescue_compacted(raw, out_keys, run_batch, dev):
+def rescue_compacted(raw, out_keys, run_batch, dev, syncs):
     """Phase C of the cascades: gather the instances whose status is
     NEEDS_F64 into batches padded to a power of two (the first straggler
     repeated in the padding lanes), solve each with ``run_batch(index
     tensor)`` and scatter `out_keys` back into `raw`.  Sets
     ``raw['rescue_iterations']``, adds it to ``raw['iterations']`` and
-    returns the number of flagged instances."""
-    status = raw["status"].cpu().numpy()
+    returns the number of flagged instances.  Adds the phase's host
+    syncs to ``syncs[0]``: its reads of the status and of each batch's
+    iterations, each a `cvx.cascade.sync` span, and each batch solve's
+    ``host_syncs``."""
+    syncs[0] += 1
+    with span("cvx.cascade.sync"):
+        status = raw["status"].cpu().numpy()
     (flagged,) = np.nonzero(status == STATUS_NEEDS_F64)
     raw["rescue_iterations"] = torch.zeros_like(raw["iterations"])
     if not flagged.size:
@@ -141,7 +151,10 @@ def rescue_compacted(raw, out_keys, run_batch, dev):
         for k in out_keys:
             raw[k] = raw[k].clone()
             raw[k][dst] = sub[k][src]
-        resc[dst_np] = sub["iterations"].cpu().numpy()[src_np]
+        syncs[0] += sub["host_syncs"] + 1
+        with span("cvx.cascade.sync"):
+            its = sub["iterations"].cpu().numpy()
+        resc[dst_np] = its[src_np]
     raw["rescue_iterations"] = torch.as_tensor(resc, device=dev)
     raw["iterations"] = raw["iterations"] + raw["rescue_iterations"]
     return int(flagged.size)
@@ -170,74 +183,78 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
     resz0 = torch.clamp(cones.snrm2(h, dims), min=1.0)
 
     # ---- initial points (coneprog.py:662-845) ------------------------
-    # the cold point is also computed when a restart phase exists:
-    # restarts must be cold (restarting from a warm start re-enters the
-    # warm-start pathology)
-    cold = None
-    warm = primalstart is not None and dualstart is not None
-    if not warm or factor64 is not None or detect_rescue:
-        f0 = factor(nt.identity_scaling(dims, dtype=dtype, device=dev,
-                                        batch=(Bsz,)))
-        # solve [0 A' G'; A 0 0; G 0 -I][x;dy;-s] = [0;b;h]
-        xc, _, ms = f0(_tzeros(c), b, h)
-        sc = -ms
-        nrms = cones.snrm2(sc, dims)
-        ts = cones.max_step(sc, dims)
-        sc = torch.where(_col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
-                         sc + _col(1.0 + ts) * e, sc)
-        # solve [...][dx;y;z] = [-c;0;0]
-        _, yc, zc = f0(_tneg(c), _tzeros(b), torch.zeros_like(h))
-        nrmz = cones.snrm2(zc, dims)
-        tz = cones.max_step(zc, dims)
-        zc = torch.where(_col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
-                         zc + _col(1.0 + tz) * e, zc)
-        cold = (xc, yc, sc, zc)
+    with span("cvx.ipm.start"):
+        # the cold point is also computed when a restart phase exists:
+        # restarts must be cold (restarting from a warm start re-enters
+        # the warm-start pathology)
+        cold = None
+        warm = primalstart is not None and dualstart is not None
+        if not warm or factor64 is not None or detect_rescue:
+            f0 = factor(nt.identity_scaling(dims, dtype=dtype, device=dev,
+                                            batch=(Bsz,)))
+            # solve [0 A' G'; A 0 0; G 0 -I][x;dy;-s] = [0;b;h]
+            xc, _, ms = f0(_tzeros(c), b, h)
+            sc = -ms
+            nrms = cones.snrm2(sc, dims)
+            ts = cones.max_step(sc, dims)
+            sc = torch.where(
+                _col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
+                sc + _col(1.0 + ts) * e, sc)
+            # solve [...][dx;y;z] = [-c;0;0]
+            _, yc, zc = f0(_tneg(c), _tzeros(b), torch.zeros_like(h))
+            nrmz = cones.snrm2(zc, dims)
+            tz = cones.max_step(zc, dims)
+            zc = torch.where(
+                _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
+                zc + _col(1.0 + tz) * e, zc)
+            cold = (xc, yc, sc, zc)
 
-    def start(d, k):
-        return _tmap(lambda u: u.to(dtype).expand((Bsz,) + u.shape[1:]),
-                     d[k])
+        def start(d, k):
+            return _tmap(
+                lambda u: u.to(dtype).expand((Bsz,) + u.shape[1:]), d[k])
 
-    if primalstart is None:
-        x, s = cold[0], cold[2]
-    else:
-        x = start(primalstart, "x")
-        s = start(primalstart, "s")
-    if dualstart is None:
-        y, z = cold[1], cold[3]
-    else:
-        y = start(dualstart, "y") if dualstart.get("y") is not None \
-            else _tzeros(b)
-        z = start(dualstart, "z")
+        if primalstart is None:
+            x, s = cold[0], cold[2]
+        else:
+            x = start(primalstart, "x")
+            s = start(primalstart, "s")
+        if dualstart is None:
+            y, z = cold[1], cold[3]
+        else:
+            y = start(dualstart, "y") if dualstart.get("y") is not None \
+                else _tzeros(b)
+            z = start(dualstart, "z")
 
-    if warm and cold is not None:
-        # per-instance warm-start validation: a non-finite or
-        # non-interior handoff would NaN compute_scaling
-        tsz_w = cones.max_step(torch.stack([s, z]), dims)
-        valid = (torch.isfinite(_tdot(x, x)) & torch.isfinite(_tdot(y, y))
-                 & (tsz_w[0] < 0) & (tsz_w[1] < 0))
-        x, y, s, z = (_where(valid, u, cl)
-                      for u, cl in zip((x, y, s, z), cold))
+        if warm and cold is not None:
+            # per-instance warm-start validation: a non-finite or
+            # non-interior handoff would NaN compute_scaling
+            tsz_w = cones.max_step(torch.stack([s, z]), dims)
+            valid = (torch.isfinite(_tdot(x, x))
+                     & torch.isfinite(_tdot(y, y))
+                     & (tsz_w[0] < 0) & (tsz_w[1] < 0))
+            x, y, s, z = (_where(valid, u, cl)
+                          for u, cl in zip((x, y, s, z), cold))
 
-    def _mkstate(x_, y_, s_, z_):
-        W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
-        one = torch.ones((Bsz,), **kw)
-        nan = torch.full((Bsz,), float("nan"), **kw)
-        return dict(
-            x=x_, y=y_, s=s_, z=z_, tau=one, kappa=one, W=W_,
-            lmbda=lmbda_, dg=one, lg=one,
-            gap=cones.sdot(s_, z_, dims),
-            iters=torch.zeros((Bsz,), **ikw),
-            status=torch.full((Bsz,), STATUS_RUNNING, **ikw),
-            pcost=nan, dcost=nan, relgap=nan, pres=nan, dres=nan,
-            pinfres=nan, dinfres=nan, cx=nan, by=nan, hz=nan,
-            best_m=torch.full((Bsz,), float("inf"), **kw),
-            stall=torch.zeros((Bsz,), **ikw),
-            max_it=torch.full((Bsz,), maxiters, **ikw),
-        )
+        def _mkstate(x_, y_, s_, z_):
+            W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
+            one = torch.ones((Bsz,), **kw)
+            nan = torch.full((Bsz,), float("nan"), **kw)
+            return dict(
+                x=x_, y=y_, s=s_, z=z_, tau=one, kappa=one, W=W_,
+                lmbda=lmbda_, dg=one, lg=one,
+                gap=cones.sdot(s_, z_, dims),
+                iters=torch.zeros((Bsz,), **ikw),
+                status=torch.full((Bsz,), STATUS_RUNNING, **ikw),
+                pcost=nan, dcost=nan, relgap=nan, pres=nan, dres=nan,
+                pinfres=nan, dinfres=nan, cx=nan, by=nan, hz=nan,
+                best_m=torch.full((Bsz,), float("inf"), **kw),
+                stall=torch.zeros((Bsz,), **ikw),
+                max_it=torch.full((Bsz,), maxiters, **ikw),
+            )
 
-    state = _mkstate(x, y, s, z)
-    # restart phases must restore the COLD point, not the warm one
-    state0 = _mkstate(*cold) if (warm and cold is not None) else state
+        state = _mkstate(x, y, s, z)
+        # restart phases must restore the COLD point, not the warm one
+        state0 = _mkstate(*cold) if (warm and cold is not None) else state
 
     def _iteration(fW, x, y, s, z, W, lmbda, dg, lg, rx, ry, rz, rt):
         dgi = 1.0 / dg
@@ -753,8 +770,9 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
 
     Instances phase A could not finish, or flagged infeasible at 1e-4,
     restart cold in phase B.  Total `iterations` counts all phases.
-    With ``instrument`` the result holds per-phase wall seconds and
-    iteration sums under ``profile``."""
+    With ``instrument`` the result holds per-phase wall seconds, host
+    syncs and iteration sums under ``profile``.  A call is a
+    `cvx.cascade.solve` span, its phases `cvx.cascade.a`, `.b`, `.c`."""
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_opts(dims, kktsolver, refinement)
     f32 = torch.float32
@@ -781,12 +799,14 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    @spanned("cvx.cascade.solve")
     def solve(c, G, h, A, b):
         c, G, h, A, b = _tensors(dev, c, G, h, A, b)
         dt = c.dtype
         prof = {}
         t0 = time.perf_counter()
-        raw_a = phase_a(*(u.to(f32) for u in (c, G, h, A, b)))
+        with span("cvx.cascade.a"):
+            raw_a = phase_a(*(u.to(f32) for u in (c, G, h, A, b)))
         if instrument:
             _sync()
             prof["a_iters"] = int(raw_a["iterations"].sum())
@@ -800,7 +820,8 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
         x0, y0, z0 = (torch.where(ok_a[:, None], raw_a[k].to(dt), nanv)
                       for k in ("x", "y", "z"))
         t0 = time.perf_counter()
-        raw = dict(phase_b(c, G, h, A, b, x0, y0, z0))
+        with span("cvx.cascade.b"):
+            raw = dict(phase_b(c, G, h, A, b, x0, y0, z0))
         if instrument:
             _sync()
             prof["b_iters"] = int(raw["iterations"].sum())
@@ -816,12 +837,15 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
                 return phase_c(c[ii], G, h, A, b)
             return phase_c(c[ii], G[ii], h[ii], A[ii], b[ii])
 
-        nflag = rescue_compacted(raw, out_keys, run_c, dev)
+        c_syncs = [0]
+        with span("cvx.cascade.c"):
+            nflag = rescue_compacted(raw, out_keys, run_c, dev, c_syncs)
         if instrument:
             _sync()
             prof["c_iters"] = int(raw["rescue_iterations"].sum())
             prof["c_s"] = time.perf_counter() - t0
             prof["c_instances"] = nflag
+            prof["c_host_syncs"] = c_syncs[0]
             raw["profile"] = prof
         return raw
 
@@ -895,12 +919,15 @@ def _start_values(d, keys, dims, dtype, dev, tree=False):
         v = torch.as_tensor(d[k], dtype=dtype, device=dev).reshape(1, -1)
         if k in ("s", "z"):
             v = cones.symmetrize_lower(v, dims)
-            if float(cones.max_step(v, dims)[0]) >= 0:
+            with span("cvx.frontend.sync"):
+                outside = float(cones.max_step(v, dims)[0]) >= 0
+            if outside:
                 raise ValueError(f"initial {k} is not positive")
         out[k] = v
     return out
 
 
+@spanned("cvx.frontend.conelp")
 def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
            dualstart=None, kktsolver=None, options=None, device="cuda",
            **kwargs):
@@ -967,16 +994,22 @@ def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
 def finalize_result(raw, dims: ConeDims):
     """Convert one instance's raw output into the reference result-dict
     format (coneprog.py:125-283): same keys, None where the reference
-    returns None."""
-    status = int(raw["status"])
+    returns None.  Each read of a device value is a `cvx.frontend.sync`
+    span."""
+    with span("cvx.frontend.sync"):
+        status = int(raw["status"])
     sstr = STATUS_STRINGS.get(status, "unknown")
 
     def opt(v, none_statuses):
         return None if status in none_statuses else v
 
     def fin(v):
-        v = float(v)
+        with span("cvx.frontend.sync"):
+            v = float(v)
         return None if (v != v or abs(v) == float("inf")) else v
+
+    with span("cvx.frontend.sync"):
+        iterations = int(raw["iterations"])
 
     pinf, dinf = STATUS_PRIMAL_INFEASIBLE, STATUS_DUAL_INFEASIBLE
     return {
@@ -999,7 +1032,7 @@ def finalize_result(raw, dims: ConeDims):
             fin(raw["pinfres"]) if status == pinf else None,
         "residual as dual infeasibility certificate":
             fin(raw["dinfres"]) if status == dinf else None,
-        "iterations": int(raw["iterations"]),
+        "iterations": iterations,
     }
 
 

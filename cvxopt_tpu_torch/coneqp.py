@@ -30,6 +30,7 @@ from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
+from cvxopt_tpu_torch.trace import span, spanned
 from cvxopt_tpu_torch.conelp import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STRINGS,
@@ -63,62 +64,66 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
     resz0 = torch.clamp(cones.snrm2(h, dims), min=1.0)
 
     # ---- initial point (coneprog.py:2044-2149) -----------------------
-    cold = None
-    if initvals is None or factor_W64 is not None or detect_rescue:
-        f0 = factor_W(nt.identity_scaling(dims, dtype=dtype, device=dev,
-                                          batch=(Bsz,)))
-        xc, yc, zc = f0(-q, b, h)
-        sc = -zc
-        nrms = cones.snrm2(sc, dims)
-        ts = cones.max_step(sc, dims)
-        sc = torch.where(_col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
-                         sc + _col(1.0 + ts) * e, sc)
-        nrmz = cones.snrm2(zc, dims)
-        tz = cones.max_step(zc, dims)
-        zc = torch.where(_col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
-                         zc + _col(1.0 + tz) * e, zc)
-        cold = (xc, yc, sc, zc)
-    if initvals is None:
-        x, y, s, z = cold
-    else:
-        def iv(k, default):
-            v = initvals.get(k)
-            v = default if v is None else v
-            return v.to(dtype).expand(Bsz, default.shape[-1])
-        x = iv("x", q.new_zeros((Bsz, n)))
-        y = iv("y", q.new_zeros((Bsz, p)))
-        s = iv("s", e.expand(Bsz, e.shape[0]))
-        z = iv("z", e.expand(Bsz, e.shape[0]))
-        if cold is not None:
-            # per-instance warm-start validation: non-finite or
-            # non-interior warm starts restart from the cold point
-            tsz_w = cones.max_step(torch.stack([s, z]), dims)
-            valid = (torch.isfinite(x.sum(-1)) & torch.isfinite(y.sum(-1))
-                     & (tsz_w[0] < 0) & (tsz_w[1] < 0))
-            if "_valid" in initvals:
-                valid = valid & initvals["_valid"]
-            x, y, s, z = (_where(valid, u, c)
-                          for u, c in zip((x, y, s, z), cold))
+    with span("cvx.ipm.start"):
+        cold = None
+        if initvals is None or factor_W64 is not None or detect_rescue:
+            f0 = factor_W(nt.identity_scaling(dims, dtype=dtype,
+                                              device=dev, batch=(Bsz,)))
+            xc, yc, zc = f0(-q, b, h)
+            sc = -zc
+            nrms = cones.snrm2(sc, dims)
+            ts = cones.max_step(sc, dims)
+            sc = torch.where(
+                _col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
+                sc + _col(1.0 + ts) * e, sc)
+            nrmz = cones.snrm2(zc, dims)
+            tz = cones.max_step(zc, dims)
+            zc = torch.where(
+                _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
+                zc + _col(1.0 + tz) * e, zc)
+            cold = (xc, yc, sc, zc)
+        if initvals is None:
+            x, y, s, z = cold
+        else:
+            def iv(k, default):
+                v = initvals.get(k)
+                v = default if v is None else v
+                return v.to(dtype).expand(Bsz, default.shape[-1])
+            x = iv("x", q.new_zeros((Bsz, n)))
+            y = iv("y", q.new_zeros((Bsz, p)))
+            s = iv("s", e.expand(Bsz, e.shape[0]))
+            z = iv("z", e.expand(Bsz, e.shape[0]))
+            if cold is not None:
+                # per-instance warm-start validation: non-finite or
+                # non-interior warm starts restart from the cold point
+                tsz_w = cones.max_step(torch.stack([s, z]), dims)
+                valid = (torch.isfinite(x.sum(-1))
+                         & torch.isfinite(y.sum(-1))
+                         & (tsz_w[0] < 0) & (tsz_w[1] < 0))
+                if "_valid" in initvals:
+                    valid = valid & initvals["_valid"]
+                x, y, s, z = (_where(valid, u, c)
+                              for u, c in zip((x, y, s, z), cold))
 
-    def _mkstate(x_, y_, s_, z_):
-        W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
-        kw = dict(dtype=dtype, device=dev)
-        ikw = dict(dtype=torch.int32, device=dev)
-        nan = torch.full((Bsz,), float("nan"), **kw)
-        return dict(
-            x=x_, y=y_, s=s_, z=z_, W=W_, lmbda=lmbda_,
-            gap=cones.sdot(s_, z_, dims),
-            iters=torch.zeros((Bsz,), **ikw),
-            status=torch.full((Bsz,), STATUS_RUNNING, **ikw),
-            pcost=nan, dcost=nan, relgap=nan, pres=nan, dres=nan,
-            best_m=torch.full((Bsz,), float("inf"), **kw),
-            stall=torch.zeros((Bsz,), **ikw),
-            max_it=torch.full((Bsz,), maxiters, **ikw),
-        )
+        def _mkstate(x_, y_, s_, z_):
+            W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
+            kw = dict(dtype=dtype, device=dev)
+            ikw = dict(dtype=torch.int32, device=dev)
+            nan = torch.full((Bsz,), float("nan"), **kw)
+            return dict(
+                x=x_, y=y_, s=s_, z=z_, W=W_, lmbda=lmbda_,
+                gap=cones.sdot(s_, z_, dims),
+                iters=torch.zeros((Bsz,), **ikw),
+                status=torch.full((Bsz,), STATUS_RUNNING, **ikw),
+                pcost=nan, dcost=nan, relgap=nan, pres=nan, dres=nan,
+                best_m=torch.full((Bsz,), float("inf"), **kw),
+                stall=torch.zeros((Bsz,), **ikw),
+                max_it=torch.full((Bsz,), maxiters, **ikw),
+            )
 
-    state = _mkstate(x, y, s, z)
-    state0 = state if cold is None or initvals is None \
-        else _mkstate(*cold)
+        state = _mkstate(x, y, s, z)
+        state0 = state if cold is None or initvals is None \
+            else _mkstate(*cold)
 
     def _iteration(fW, x, y, s, z, W, lmbda, gap, rx, ry, rz):
         lmbdasq = cones.ssqr(lmbda, dims)
@@ -442,9 +447,10 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
          compacted on the host into a power-of-two padded batch.
 
     Total `iterations` counts all phases.  With ``instrument`` the
-    result holds per-phase wall seconds and iteration sums under
-    ``profile``.  The phases are also reachable as ``solve.phase_a``,
-    ``solve.phase_b`` and ``solve.phase_c``."""
+    result holds per-phase wall seconds, host syncs and iteration sums
+    under ``profile``.  A call is a `cvx.cascade.solve` span, its phases
+    `cvx.cascade.a`, `.b` and `.c`.  The phases are also reachable as
+    ``solve.phase_a``, ``solve.phase_b`` and ``solve.phase_c``."""
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_qp_opts(dims, kktsolver,
                                              refinement)
@@ -501,11 +507,13 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    @spanned("cvx.cascade.solve")
     def solve(P, q, G, h, A, b):
         P, q, G, h, A, b = _tensors(dev, P, q, G, h, A, b)
         prof = {}
         t0 = time.perf_counter()
-        raw_a = phase_a(P, q, G, h, A, b)
+        with span("cvx.cascade.a"):
+            raw_a = phase_a(P, q, G, h, A, b)
         if instrument:
             _sync()
             prof["a_iters"] = int(raw_a["iterations"].sum())
@@ -514,7 +522,8 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         iv = {k: raw_a[k].to(P.dtype) for k in ("x", "y", "s", "z")}
         iv["_valid"] = raw_a["status"] == STATUS_OPTIMAL
         t0 = time.perf_counter()
-        raw = dict(phase_b(P, q, G, h, A, b, iv))
+        with span("cvx.cascade.b"):
+            raw = dict(phase_b(P, q, G, h, A, b, iv))
         if instrument:
             _sync()
             prof["b_iters"] = int(raw["iterations"].sum())
@@ -531,12 +540,15 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
                 return phase_c(P[ii], q[ii], G, h, A, b)
             return phase_c(P[ii], q[ii], G[ii], h[ii], A[ii], b[ii])
 
-        nflag = rescue_compacted(raw, out_keys, run_c, dev)
+        c_syncs = [0]
+        with span("cvx.cascade.c"):
+            nflag = rescue_compacted(raw, out_keys, run_c, dev, c_syncs)
         if instrument:
             _sync()
             prof["c_iters"] = int(raw["rescue_iterations"].sum())
             prof["c_s"] = time.perf_counter() - t0
             prof["c_instances"] = nflag
+            prof["c_host_syncs"] = c_syncs[0]
             raw["profile"] = prof
         return raw
 
@@ -546,6 +558,7 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
     return solve
 
 
+@spanned("cvx.frontend.coneqp")
 def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None,
            initvals=None, kktsolver=None, options=None, device="cuda",
            **kwargs):
@@ -614,12 +627,18 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None,
 
 
 def finalize_qp_result(raw):
-    """Reference result-dict format for coneqp (coneprog.py:2229-2234)."""
-    status = int(raw["status"])
+    """Reference result-dict format for coneqp (coneprog.py:2229-2234).
+    Each read of a device value is a `cvx.frontend.sync` span."""
+    with span("cvx.frontend.sync"):
+        status = int(raw["status"])
 
     def fin(v):
-        v = float(v)
+        with span("cvx.frontend.sync"):
+            v = float(v)
         return None if (v != v or abs(v) == float("inf")) else v
+
+    with span("cvx.frontend.sync"):
+        iterations = int(raw["iterations"])
 
     return {
         "status": STATUS_STRINGS.get(status, "unknown"),
@@ -632,5 +651,5 @@ def finalize_qp_result(raw):
         "dual infeasibility": fin(raw["dres"]),
         "primal slack": fin(raw["primal_slack"]),
         "dual slack": fin(raw["dual_slack"]),
-        "iterations": int(raw["iterations"]),
+        "iterations": iterations,
     }

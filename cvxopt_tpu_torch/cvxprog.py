@@ -44,6 +44,7 @@ from cvxopt_tpu_torch import kkt as kktmod
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch.ops.matvec import mv, mvt, vdot
+from cvxopt_tpu_torch.trace import span
 from cvxopt_tpu_torch.conelp import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_STRINGS, _run_loop, _unbatch,
@@ -86,7 +87,9 @@ def _backtrack(step, done, accept, syncs):
     trip."""
     for _ in range(MAX_LS_ITERS):
         syncs[0] += 1
-        if bool(done.all()):
+        with span("cvx.ipm.sync"):
+            finished = bool(done.all())
+        if finished:
             break
         acc = accept(step)
         act = ~done

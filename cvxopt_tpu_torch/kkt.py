@@ -43,6 +43,10 @@ tensors the kernel wrappers compute their plain PyTorch versions.
 
 Singularity is reported through NaNs (or infinities), which the solver
 loops turn into a status code; no strategy raises on a singular system.
+
+A kktsolver from `get_kktsolver` runs each factor call in a
+`cvx.kkt.factor` span and each solve call in a `cvx.kkt.solve` span
+(`trace`); a host read inside a strategy is a `cvx.kkt.sync` span.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from cvxopt_tpu_torch.ops.matvec import mv, mvt
 from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops.blockinv import spd_inverse
 from cvxopt_tpu_torch.ops.jacobi import eigh_accurate
+from cvxopt_tpu_torch.trace import recording, span
 
 DEFAULT_SOLVERS = ("ldl", "ldl2", "qr", "chol", "chol2")
 
@@ -358,7 +363,9 @@ def _kkt_chol2_adaptive(G, dims: ConeDims, A):
         # NaN-safe: a non-PD (in f32) S must take the accurate branch
         need64 = ~(relres <= 1e-6)
 
-        if bool(need64.any()):
+        with span("cvx.kkt.sync"):
+            any64 = bool(need64.any())
+        if any64:
             S64 = Gs.transpose(-1, -2) @ Gs
             if H is not None:
                 S64 = S64 + H
@@ -761,6 +768,23 @@ def resolve_factor_dtype(factor_dtype):
     return factor_dtype
 
 
+def _spanned_kktsolver(factor):
+    """`factor` with its calls in `cvx.kkt.factor` spans and the calls
+    of the solve it returns in `cvx.kkt.solve` spans.  A factor call
+    made while no profiler records returns the strategy's own solve."""
+    def spanned_factor(*args, **kwargs):
+        if not recording():
+            return factor(*args, **kwargs)
+        with span("cvx.kkt.factor"):
+            solve = factor(*args, **kwargs)
+
+        def spanned_solve(*a, **kw):
+            with span("cvx.kkt.solve"):
+                return solve(*a, **kw)
+        return spanned_solve
+    return spanned_factor
+
+
 def get_kktsolver(name: str, G, dims: ConeDims, A, mnl: int = 0,
                   kktreg: Optional[float] = None, factor_dtype=None):
     """Map kktsolver names to strategies: 'ldl' is the full-3x3 `kkt_lu`,
@@ -768,14 +792,16 @@ def get_kktsolver(name: str, G, dims: ConeDims, A, mnl: int = 0,
     their '_inv' forms map to their namesakes."""
     inv = dict(explicit_inverse=True) if name.endswith("_inv") else {}
     base = name[:-4] if inv else name
-    if name == "ldl":
-        return kkt_lu(G, dims, A, mnl=mnl, kktreg=kktreg)
-    if name == "ldl2":
-        return kkt_ldl2(G, dims, A, mnl=mnl, kktreg=kktreg,
-                        factor_dtype=factor_dtype)
     strategies = {"qr": kkt_qr, "chol": kkt_chol, "cholqr": kkt_cholqr,
                   "chol2": kkt_chol2}
-    if base in strategies:
-        return strategies[base](G, dims, A, mnl=mnl,
-                                factor_dtype=factor_dtype, **inv)
-    raise ValueError(f"'{name}' is not a valid value for kktsolver")
+    if name == "ldl":
+        factor = kkt_lu(G, dims, A, mnl=mnl, kktreg=kktreg)
+    elif name == "ldl2":
+        factor = kkt_ldl2(G, dims, A, mnl=mnl, kktreg=kktreg,
+                          factor_dtype=factor_dtype)
+    elif base in strategies:
+        factor = strategies[base](G, dims, A, mnl=mnl,
+                                  factor_dtype=factor_dtype, **inv)
+    else:
+        raise ValueError(f"'{name}' is not a valid value for kktsolver")
+    return _spanned_kktsolver(factor)

@@ -280,14 +280,18 @@ def test_cascade_phase_c_rescues_flagged_instances():
     raw["x"][[1, 3, 4]] = 0.0
     raw["status"][[1, 3, 4]] = tc.STATUS_NEEDS_F64
     raw["iterations"][:] = 1
-    seen = []
+    seen, subs = [], []
 
     def run(ii):
         seen.append(ii.tolist())
-        return cold(c[ii], G, h, A, b)
+        subs.append(cold(c[ii], G, h, A, b))
+        return subs[-1]
 
-    n = tc.rescue_compacted(raw, ("x", "status"), run, dev)
+    syncs = [0]
+    n = tc.rescue_compacted(raw, ("x", "status"), run, dev, syncs)
     assert n == 3 and seen == [[1, 3, 4, 1]]
+    # the status read, then the batch's solve and its iterations read
+    assert syncs[0] == 1 + subs[0]["host_syncs"] + 1
     assert raw["status"].tolist() == [0] * 5
     np.testing.assert_allclose(raw["x"].numpy(), full["x"].numpy(),
                                atol=1e-12)

@@ -42,6 +42,7 @@ import torch
 from cvxopt_tpu_torch import cones
 from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
+from cvxopt_tpu_torch import ipm_graph
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
@@ -87,18 +88,30 @@ STEP = 0.99
 EXPON = 3
 
 
-def _run_loop(st, body, syncs):
+def _running(st):
+    return st["status"] == STATUS_RUNNING
+
+
+def _run_loop(st, body, syncs, tape=None):
     """Iterate `body` while any instance is running; instances that are
     not keep their state.  Each pass is a `cvx.ipm.pass` span; each
-    check of the status, counted in ``syncs[0]``, a `cvx.ipm.sync`."""
+    check of the status, counted in ``syncs[0]``, a `cvx.ipm.sync`.
+    With an `ipm_graph.Tape` the passes are replayed from it."""
+    if tape is not None:
+        def step(st):
+            running = _running(st)
+            new = body(st)
+            return {k: _where(running, new[k], st[k]) for k in st}
+        return tape.run(st, step, lambda st: _running(st).any(), syncs)
     while True:
-        running = st["status"] == STATUS_RUNNING
+        running = _running(st)
         syncs[0] += 1
         with span("cvx.ipm.sync"):
             more = bool(running.any())     # the one host sync per pass
         if not more:
             return st
         with span("cvx.ipm.pass"):
+            ipm_graph.COUNTS["eager_passes"] += 1
             new = body(st)
             st = {k: _where(running, new[k], st[k]) for k in st}
 

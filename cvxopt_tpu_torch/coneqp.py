@@ -28,6 +28,7 @@ from cvxopt_tpu_torch import cones
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
+from cvxopt_tpu_torch import ipm_graph
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
 from cvxopt_tpu_torch.trace import span, spanned
@@ -49,19 +50,25 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
                   feastol, refinement, correction, show_progress,
                   initvals=None, factor_W64=None, refine_pred=True,
                   relres_trigger=True, detect_rescue=False,
-                  debug=False):
+                  debug=False, tape=None):
     """The coneqp algorithm on a batch (q: (B, n); h, b: shared or
-    batched) with all linear maps as closures on batched vectors."""
+    batched) with all linear maps as closures on batched vectors.  With
+    an `ipm_graph.Tape` (single-phase only) the passes replay it: the
+    inputs the maps, the factor and q, h, b read are the tape's pinned
+    ones, and the values computed here that a pass reads are pinned."""
     Bsz = q.shape[0]
     dev = q.device
     h = h.expand(Bsz, h.shape[-1])
     b = b.expand(Bsz, b.shape[-1])
-    e = cones.cone_identity(dims, dtype=dtype, device=dev)
+    e = ipm_graph.pin(tape, "e", cones.cone_identity(dims, dtype=dtype,
+                                                     device=dev))
     e_lq = e[:dims.lnl + dims.qdim]
 
-    resx0 = torch.clamp(torch.linalg.vector_norm(q, dim=-1), min=1.0)
-    resy0 = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1.0)
-    resz0 = torch.clamp(cones.snrm2(h, dims), min=1.0)
+    resx0, resy0, resz0 = (ipm_graph.pin(tape, k, torch.clamp(r, min=1.0))
+                           for k, r in (
+        ("resx0", torch.linalg.vector_norm(q, dim=-1)),
+        ("resy0", torch.linalg.vector_norm(b, dim=-1)),
+        ("resz0", cones.snrm2(h, dims))))
 
     # ---- initial point (coneprog.py:2044-2149) -----------------------
     with span("cvx.ipm.start"):
@@ -320,7 +327,7 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
     if factor_W64 is None:
         final = _run_loop(state,
                           lambda st: _body(st, factor_W, detect_rescue),
-                          syncs)
+                          syncs, tape)
         rescue_iters = torch.zeros_like(final["iters"])
     else:
         # phase 1: mixed-precision factor with failure detection;
@@ -374,14 +381,24 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
     dict of tensors.  q is (B, n) (or (n,) for one problem, whose
     results then drop the batch axis); P is (B, n, n) or shared; G, h,
     A, b are shared or carry the batch axis.  The working dtype is q's.
-    Runs on `device` ("cuda" unless the caller asks for the CPU)."""
+    Runs on `device` ("cuda" unless the caller asks for the CPU).  From
+    its second call at one set of shapes, a solve on the card replays its
+    IPM passes from CUDA graphs (`ipm_graph`) where the kktsolver is
+    `kkt.capturable`, ``factor_dtype`` is not 'rescue' and nothing is
+    printed."""
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_qp_opts(dims, kktsolver,
                                              refinement)
+    tapes = ipm_graph.Tapes(dev)
+    taped = (factor_dtype != "rescue" and not (show_progress or debug)
+             and kktmod.capturable(kktsolver, dims, factor_dtype))
 
     def core(P, q, G, h, A, b, initvals=None):
         q, = _tensors(dev, q)
         P, G, h, A, b = _tensors(dev, P, G, h, A, b, dtype=q.dtype)
+        tape = tapes.get("qp", (P, q, G, h, A, b), taped)
+        P, q, G, h, A, b = (ipm_graph.pin(tape, k, u) for k, u in
+                            zip("PqGhAb", (P, q, G, h, A, b)))
         single = q.dim() == 1
         if single:
             q = q.unsqueeze(0)
@@ -405,18 +422,19 @@ def make_coneqp(dims: ConeDims, kktsolver: str = "default",
                 # condition-halving QR factor can
                 fname = "cholqr_inv" if kktsolver.endswith("_inv") \
                     else "cholqr"
-        factor = kktmod.get_kktsolver(fname, G, dims, A, kktreg=kktreg,
-                                      factor_dtype=fd)
+        factor = ipm_graph.once(tape, "factor", lambda: kktmod.get_kktsolver(
+            fname, G, dims, A, kktreg=kktreg, factor_dtype=fd))
         Pw = kktmod.wrap_P(fname, P, factor_dtype=(
             fd if fd == "float32" else None))
         raw = _coneqp_solve(
             dims, factor_W=lambda W: factor(W, Pw),
-            factor_W64=factor_W64, **_maps(P, G, A),
+            factor_W64=factor_W64,
+            **ipm_graph.once(tape, "maps", lambda: _maps(P, G, A)),
             q=q, h=h, b=b, n=n, p=A.shape[-2], dtype=q.dtype,
             maxiters=maxiters, abstol=abstol, reltol=reltol,
             feastol=feastol, refinement=refinement,
             correction=correction, show_progress=show_progress,
-            debug=debug, initvals=initvals,
+            debug=debug, initvals=initvals, tape=tape,
             relres_trigger=not ((dims.q or dims.s) and "cholqr" in fname))
         return _unbatch(raw) if single else raw
 
@@ -448,29 +466,46 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
 
     Total `iterations` counts all phases.  With ``instrument`` the
     result holds per-phase wall seconds, host syncs and iteration sums
-    under ``profile``.  A call is a `cvx.cascade.solve` span, its phases
-    `cvx.cascade.a`, `.b` and `.c`.  The phases are also reachable as
-    ``solve.phase_a``, ``solve.phase_b`` and ``solve.phase_c``."""
+    under ``profile``, and the IPM tapes' work (`ipm_graph`): passes
+    replayed in phases A and B and captures in the call.  A call is a
+    `cvx.cascade.solve` span, its phases `cvx.cascade.a`, `.b` and `.c`.
+    The phases are also reachable as ``solve.phase_a``, ``solve.phase_b``
+    and ``solve.phase_c``.
+
+    On the card each phase replays its IPM passes from CUDA graphs from
+    its second call at one set of shapes on, where its kktsolver is
+    `kkt.capturable`: a phase then copies its inputs into buffers of its
+    tape and builds its kktsolver and maps over them once."""
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_qp_opts(dims, kktsolver,
                                              refinement)
     mixed_ok = not (dims.q or dims.s)
     refinement_b = max(1, refinement) if mixed_ok else max(2, refinement)
     bname = kktsolver if mixed_ok else "cholqr_inv"
+    rname = kktmod.robust_name(kktsolver)
     f32 = torch.float32
+    tapes = ipm_graph.Tapes(dev)
 
-    def common(P, q, G, h, A, b):
-        return dict(**_maps(P, G, A), q=q, h=h, b=b, n=q.shape[-1],
-                    p=A.shape[-2], dtype=q.dtype, maxiters=maxiters,
-                    correction=correction, show_progress=False)
+    def setup(phase, name, fdt, ins, dtype=None):
+        """A phase's P (cast to `dtype`), kktsolver and keyword arguments
+        of `_coneqp_solve`, over its tape's pinned inputs where one
+        engages."""
+        tape = tapes.get(phase, ins, kktmod.capturable(name, dims, fdt))
+        P, q, G, h, A, b = (ipm_graph.pin(tape, k, u, dtype)
+                            for k, u in zip("PqGhAb", ins))
+        factor = ipm_graph.once(tape, "factor", lambda: kktmod.get_kktsolver(
+            name, G, dims, A, kktreg=kktreg, factor_dtype=fdt))
+        kw = ipm_graph.once(tape, "kw", lambda: dict(
+            **_maps(P, G, A), q=q, h=h, b=b, n=q.shape[-1], p=A.shape[-2],
+            dtype=q.dtype, maxiters=maxiters, correction=correction,
+            show_progress=False, tape=tape))
+        return P, factor, kw
 
     def phase_a(P, q, G, h, A, b):
-        P1, q1, G1, h1, A1, b1 = (u.to(f32) for u in (P, q, G, h, A, b))
-        factor_a = kktmod.get_kktsolver(kktsolver, G1, dims, A1,
-                                        kktreg=kktreg)
+        P1, factor_a, kw = setup("a", kktsolver, None, (P, q, G, h, A, b),
+                                 f32)
         raw = _coneqp_solve(
-            dims, factor_W=lambda W: factor_a(W, P1),
-            **common(P1, q1, G1, h1, A1, b1),
+            dims, factor_W=lambda W: factor_a(W, P1), **kw,
             abstol=max(phase1_tol, abstol),
             reltol=max(phase1_tol, reltol),
             feastol=max(phase1_tol, feastol), refinement=0)
@@ -478,24 +513,19 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         return {k: raw[k] for k in keys}
 
     def phase_b(P, q, G, h, A, b, iv):
-        factor_b = kktmod.get_kktsolver(bname, G, dims, A, kktreg=kktreg,
-                                        factor_dtype="float32")
+        P, factor_b, kw = setup("b", bname, "float32", (P, q, G, h, A, b))
         Pb = kktmod.wrap_P(bname, P, factor_dtype="float32")
         return _coneqp_solve(
             dims, factor_W=lambda W: factor_b(W, Pb), detect_rescue=True,
-            **common(P, q, G, h, A, b),
-            abstol=abstol, reltol=reltol, feastol=feastol,
+            **kw, abstol=abstol, reltol=reltol, feastol=feastol,
             refinement=refinement_b, initvals=iv, refine_pred=False,
             relres_trigger=mixed_ok)
 
     def phase_c(P, q, G, h, A, b):
-        rname = kktmod.robust_name(kktsolver)
-        f64fac = kktmod.get_kktsolver(rname, G, dims, A, kktreg=kktreg,
-                                      factor_dtype=None)
+        P, f64fac, kw = setup("c", rname, None, (P, q, G, h, A, b))
         P64 = kktmod.wrap_P(rname, P)
         return _coneqp_solve(
-            dims, factor_W=lambda W: f64fac(W, P64),
-            **common(P, q, G, h, A, b),
+            dims, factor_W=lambda W: f64fac(W, P64), **kw,
             abstol=abstol, reltol=reltol, feastol=feastol,
             refinement=max(1, refinement))
 
@@ -507,10 +537,14 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def replays():
+        return ipm_graph.COUNTS["replays"]
+
     @spanned("cvx.cascade.solve")
     def solve(P, q, G, h, A, b):
         P, q, G, h, A, b = _tensors(dev, P, q, G, h, A, b)
         prof = {}
+        captures, r0 = ipm_graph.COUNTS["captures"], replays()
         t0 = time.perf_counter()
         with span("cvx.cascade.a"):
             raw_a = phase_a(P, q, G, h, A, b)
@@ -519,6 +553,7 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
             prof["a_iters"] = int(raw_a["iterations"].sum())
             prof["a_s"] = time.perf_counter() - t0
             prof["a_host_syncs"] = raw_a["host_syncs"]
+            prof["a_replays"], r0 = replays() - r0, replays()
         iv = {k: raw_a[k].to(P.dtype) for k in ("x", "y", "s", "z")}
         iv["_valid"] = raw_a["status"] == STATUS_OPTIMAL
         t0 = time.perf_counter()
@@ -529,6 +564,7 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
             prof["b_iters"] = int(raw["iterations"].sum())
             prof["b_s"] = time.perf_counter() - t0
             prof["b_host_syncs"] = raw["host_syncs"]
+            prof["b_replays"] = replays() - r0
         raw["iterations"] = raw["iterations"] + raw_a["iterations"]
         raw["phase1_iterations"] = raw_a["iterations"]
 
@@ -549,6 +585,7 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
             prof["c_s"] = time.perf_counter() - t0
             prof["c_instances"] = nflag
             prof["c_host_syncs"] = c_syncs[0]
+            prof["captures"] = ipm_graph.COUNTS["captures"] - captures
             raw["profile"] = prof
         return raw
 

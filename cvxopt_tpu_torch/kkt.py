@@ -47,6 +47,9 @@ loops turn into a status code; no strategy raises on a singular system.
 A kktsolver from `get_kktsolver` runs each factor call in a
 `cvx.kkt.factor` span and each solve call in a `cvx.kkt.solve` span
 (`trace`); a host read inside a strategy is a `cvx.kkt.sync` span.
+The fused wrappers are called through `ipm_graph.call`, which defers
+them while an IPM tape records; `capturable` names the strategies a
+tape may record.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.ops.blockinv import spd_inverse
 from cvxopt_tpu_torch.ops.jacobi import eigh_accurate
 from cvxopt_tpu_torch.trace import recording, span
+from cvxopt_tpu_torch import ipm_graph
 
 DEFAULT_SOLVERS = ("ldl", "ldl2", "qr", "chol", "chol2")
 
@@ -184,8 +188,7 @@ def _kernel_factor(Hf, Gt, dinv2, n, equilibrate, explicit_inverse):
     if npd != n:
         Pp = torch.zeros((Bsz, npd, npd), dtype=dt, device=dev)
         Pp[:, :n, :n] = Hf
-        idx = torch.arange(n, npd, device=dev)
-        Pp[:, idx, idx] = 1.0
+        Pp.diagonal(dim1=-2, dim2=-1)[:, n:].fill_(1.0)
         Gp = torch.zeros(Gt.shape[:-2] + (npd, Gt.shape[-1]), dtype=dt,
                          device=dev)
         Gp[..., :n, :] = Gt
@@ -194,19 +197,20 @@ def _kernel_factor(Hf, Gt, dinv2, n, equilibrate, explicit_inverse):
         Hf = Hf.expand(Bsz, n, n).contiguous()
         Gt = Gt.contiguous()
     if shared:
-        out = fc.fused_schur_cholesky_batched(
-            Hf, Gt, dinv2, tb=1, equilibrate=equilibrate, device=dev)
+        out = ipm_graph.call("fused_schur_cholesky_batched", Hf, Gt, dinv2,
+                             tb=1, equilibrate=equilibrate, device=dev)
     else:
-        out = fc.fused_schur_cholesky(
-            Hf, Gt, dinv2, equilibrate=equilibrate, device=dev)
+        out = ipm_graph.call("fused_schur_cholesky", Hf, Gt, dinv2,
+                             equilibrate=equilibrate, device=dev)
     L, Dinv = out[0], out[1]
     deq = out[2][:, :n] if equilibrate else None
 
     def solve_rows(R):
         if shared:
-            return fc.fused_cholesky_solve_batched(L, Dinv, R, tb=1,
-                                                   device=dev)
-        return fc.fused_cholesky_solve(L, Dinv, R, device=dev)
+            return ipm_graph.call("fused_cholesky_solve_batched", L, Dinv,
+                                  R, tb=1, device=dev)
+        return ipm_graph.call("fused_cholesky_solve", L, Dinv, R,
+                              device=dev)
 
     if explicit_inverse:
         eye = torch.eye(npd, dtype=dt, device=dev).expand(Bsz, npd, npd)
@@ -783,6 +787,17 @@ def _spanned_kktsolver(factor):
                 return solve(*a, **kw)
         return spanned_solve
     return spanned_factor
+
+
+def capturable(name, dims: ConeDims, factor_dtype=None) -> bool:
+    """Whether an IPM pass that factors with kktsolver `name` may be
+    recorded as CUDA graphs (`ipm_graph`): nothing in the pass reads a
+    device value on the host.  'chol2' and 'chol2_inv' (not 'adaptive',
+    whose factor reads its probe) on cones with only an 'l' part; the
+    eigensolvers of 's' blocks check their result on the host, and a
+    pass over 'q' blocks has not been recorded."""
+    return (name in ("chol2", "chol2_inv") and factor_dtype != "adaptive"
+            and not dims.q and not dims.s)
 
 
 def get_kktsolver(name: str, G, dims: ConeDims, A, mnl: int = 0,

@@ -39,7 +39,10 @@ solve_few or solve_many by the number of right-hand sides, or, for few
 (instance, right-hand side) pairs, panel_solve: one block per (pair,
 panel, sweep).  `launch_counts` also counts the calls of schur_chol64
 and of each of the two small-batch kernels.  `launch_config` gives each
-call's launches, grids and shared memory.
+call's launches, grids and shared memory.  Given ``out=`` (tensors as
+`out_buffers` makes them), a wrapper writes its results there and
+returns `out`: the IPM tapes (`ipm_graph`) hand each call the same
+buffers on every replay.
 
 A pivot <= 0 or not finite poisons the whole instance with NaN, in the
 kernels and the plain versions alike; the solvers read NaN as a
@@ -548,7 +551,7 @@ def _factor(L, Dinv, deq):
     return "panel_factor"
 
 
-def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
+def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate, out=None):
     if not P3.is_contiguous():
         raise ValueError("P must be contiguous")
     _inner_contig(Gt, "Gt")
@@ -556,9 +559,11 @@ def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
         raise ValueError("dinv2 must be contiguous")
     Bsz, n, _ = P3.shape
     kw = dict(dtype=P3.dtype, device=P3.device)
-    L = torch.empty((Bsz, n, n), **kw)
-    Dinv = torch.empty((Bsz, n // BP, BP, BP), **kw)
-    deq = torch.empty((Bsz, n), **kw) if equilibrate else None
+    if out is None:
+        out = (torch.empty((Bsz, n, n), **kw),
+               torch.empty((Bsz, n // BP, BP, BP), **kw),
+               torch.empty((Bsz, n), **kw) if equilibrate else None)
+    L, Dinv, deq = out[0], out[1], out[2] if equilibrate else None
     if n == BP:
         (cfg,) = launch_config("factor", Bsz, n, Gt.shape[-1],
                                P3.element_size(), _smem_optin(P3.device))
@@ -571,7 +576,7 @@ def _launch_schur(P3, Gt, gt_bs, d2, d_bs, equilibrate):
     return L, Dinv, deq, _factor(L, Dinv, deq)
 
 
-def _launch_solve(L3, D4, Bm, b_bs, nrhs):
+def _launch_solve(L3, D4, Bm, b_bs, nrhs, X=None):
     Bsz, n, _ = L3.shape
     if not (L3.is_contiguous() and D4.is_contiguous()):
         raise ValueError("L and Dinv must be contiguous")
@@ -583,7 +588,8 @@ def _launch_solve(L3, D4, Bm, b_bs, nrhs):
         D4 = D4.clone()
     cfg = launch_config("solve", Bsz, n, nrhs, L3.element_size(),
                         _smem_optin(L3.device), _sms(L3.device))[0]
-    X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
+    if X is None:
+        X = torch.empty((Bsz, nrhs, n), dtype=L3.dtype, device=L3.device)
     if cfg["kernel"] == "panel_solve":
         scratch = torch.zeros(cfg["scratch"] // 8, dtype=torch.int64,
                               device=L3.device)
@@ -601,22 +607,71 @@ def _check_n(n):
         raise ValueError(f"n ({n}) must be a multiple of {BP}")
 
 
+def _out_shapes(name, args, equilibrate=False):
+    """Shapes of what wrapper `name` returns for positional `args`."""
+    A = args[0]
+    if name.startswith("fused_schur"):
+        lead, n = A.shape[:-2], A.shape[-1]
+        shapes = [A.shape, lead + (n // BP, BP, BP)]
+        return shapes + [lead + (n,)] if equilibrate else shapes
+    rows = args[2]
+    return [A.shape[:-2] + rows.shape[-2:] if A.dim() == 3 else rows.shape]
+
+
+def out_buffers(name, *args, equilibrate=False, **_):
+    """Empty tensors that wrapper `name` accepts as ``out=`` for these
+    arguments: (L, Dinv[, deq]) of a factor, X of a solve."""
+    A = args[0]
+    bufs = [torch.empty(s, dtype=A.dtype, device=A.device)
+            for s in _out_shapes(name, args, equilibrate)]
+    return tuple(bufs) if name.startswith("fused_schur") else bufs[0]
+
+
+def _check_out(out, name, args, equilibrate=False):
+    """Raise unless `out` holds contiguous tensors of the shapes, dtype
+    and device that wrapper `name` returns for `args`."""
+    if out is None:
+        return
+    outs = out if isinstance(out, tuple) else (out,)
+    shapes = _out_shapes(name, args, equilibrate)
+    A = args[0]
+    if len(outs) != len(shapes) or any(
+            tuple(o.shape) != tuple(s) or o.dtype != A.dtype
+            or o.device != A.device or not o.is_contiguous()
+            for o, s in zip(outs, shapes)):
+        raise ValueError(f"{name}: out must be contiguous {A.dtype} "
+                         f"tensors of shapes {[tuple(s) for s in shapes]}")
+
+
+def _into(out, res):
+    """`res` (a tensor or a tuple), copied into `out` if given."""
+    if out is None:
+        return res
+    for o, r in zip(out if isinstance(out, tuple) else (out,),
+                    res if isinstance(res, tuple) else (res,)):
+        o.copy_(r)
+    return out
+
+
 # ---- public wrappers ---------------------------------------------------
 
 def fused_schur_cholesky(P, Gt, dinv2, *, equilibrate=False,
-                         device="cuda"):
+                         device="cuda", out=None):
     """L, Dinv = chol(P + Gt diag(dinv2) Gt') with panel inverses.
 
     P (n, n) or (B, n, n); Gt (n, m) or per-instance (B, n, m); dinv2
     (m,), (1, m) or (B, m).  Returns L (..., n, n), Dinv (..., n/64,
-    64, 64), and deq (..., n) when `equilibrate`."""
+    64, 64), and deq (..., n) when `equilibrate`; written into and
+    returned as the tuple `out` if given (`out_buffers`)."""
     dev = resolve_device(device)
     check_on(dev, P, Gt, dinv2)
     _check_dtype(P, Gt, dinv2)
     n = P.shape[-1]
     _check_n(n)
+    _check_out(out, "fused_schur_cholesky", (P,), equilibrate)
     if dev.type == "cpu":
-        return fused_schur_cholesky_ref(P, Gt, dinv2, equilibrate)
+        return _into(out, fused_schur_cholesky_ref(P, Gt, dinv2,
+                                                   equilibrate))
     single = P.dim() == 2
     P3 = P.unsqueeze(0) if single else P
     Bsz = P3.shape[0]
@@ -628,45 +683,56 @@ def fused_schur_cholesky(P, Gt, dinv2, *, equilibrate=False,
         raise ValueError("Gt batch does not match P")
     gt_bs = Gt.stride(0) if Gt.dim() == 3 else 0
     d_bs = d2.stride(0) if d2.shape[0] == Bsz and Bsz > 1 else 0
+    out3 = out if out is None or not single else \
+        tuple(o.unsqueeze(0) for o in out)
     L, Dinv, deq, kname = _launch_schur(P3, Gt, gt_bs, d2, d_bs,
-                                        equilibrate)
+                                        equilibrate, out3)
     fused_schur_cholesky.launches += 1
     fused_schur_cholesky.kernels[kname] += 1
+    if out is not None:
+        return out
     if single:
         L, Dinv = L[0], Dinv[0]
         deq = deq[0] if deq is not None else None
     return (L, Dinv) if deq is None else (L, Dinv, deq)
 
 
-def fused_cholesky_solve(L, Dinv, B_rows, *, device="cuda"):
+def fused_cholesky_solve(L, Dinv, B_rows, *, device="cuda", out=None):
     """x = (L L')^{-1} b for right-hand sides stored as rows.
 
     L (n, n) or (B, n, n); Dinv (..., n/64, 64, 64); B_rows (nrhs, n)
-    or (B, nrhs, n).  Returns B_rows' shape."""
+    or (B, nrhs, n).  Returns B_rows' shape (with L's batch), written
+    into and returned as `out` if given."""
     dev = resolve_device(device)
     check_on(dev, L, Dinv, B_rows)
     _check_dtype(L, Dinv, B_rows)
     n = L.shape[-1]
     _check_n(n)
+    _check_out(out, "fused_cholesky_solve", (L, Dinv, B_rows))
     if dev.type == "cpu":
-        return fused_cholesky_solve_ref(L, Dinv, B_rows)
+        return _into(out, fused_cholesky_solve_ref(L, Dinv, B_rows))
     single = L.dim() == 2
     L3 = L.unsqueeze(0) if single else L
     D4 = Dinv.unsqueeze(0) if single else Dinv
     Bm = B_rows.unsqueeze(0) if B_rows.dim() == 2 else B_rows
     if Bm.shape[0] != L3.shape[0]:
         Bm = Bm.expand(L3.shape[0], -1, -1)
-    X, kname = _launch_solve(L3, D4, Bm, Bm.stride(0), Bm.shape[1])
+    X3 = out if out is None or out.dim() == 3 else out.unsqueeze(0)
+    X, kname = _launch_solve(L3, D4, Bm, Bm.stride(0), Bm.shape[1], X3)
     fused_cholesky_solve.launches += 1
     fused_cholesky_solve.kernels[kname] += 1
+    if out is not None:
+        return out
     return X[0] if single and B_rows.dim() == 2 else X
 
 
 def fused_schur_cholesky_batched(P, Gt, dinv2, tb: int = 8, *,
-                                 equilibrate=False, device="cuda"):
+                                 equilibrate=False, device="cuda",
+                                 out=None):
     """Batched L, Dinv with a shared Gt: P (B, n, n), Gt (n, m), dinv2
     (B, m).  B must be a multiple of tb (kept from the TPU kernel's
-    signature; the CUDA kernels otherwise ignore it) and n of BP."""
+    signature; the CUDA kernels otherwise ignore it) and n of BP.
+    Returns as `fused_schur_cholesky`, `out` included."""
     dev = resolve_device(device)
     check_on(dev, P, Gt, dinv2)
     _check_dtype(P, Gt, dinv2)
@@ -675,30 +741,36 @@ def fused_schur_cholesky_batched(P, Gt, dinv2, tb: int = 8, *,
         raise ValueError("B must be divisible by tb and n by BP")
     if Gt.dim() != 2 or dinv2.shape != (Bsz, Gt.shape[1]):
         raise ValueError("expected Gt (n, m) and dinv2 (B, m)")
+    _check_out(out, "fused_schur_cholesky_batched", (P,), equilibrate)
     if dev.type == "cpu":
-        return fused_schur_cholesky_batched_ref(P, Gt, dinv2, equilibrate)
+        return _into(out, fused_schur_cholesky_batched_ref(P, Gt, dinv2,
+                                                           equilibrate))
     L, Dinv, deq, kname = _launch_schur(P, Gt, 0, dinv2, dinv2.stride(0),
-                                        equilibrate)
+                                        equilibrate, out)
     fused_schur_cholesky_batched.launches += 1
     fused_schur_cholesky_batched.kernels[kname] += 1
+    if out is not None:
+        return out
     return (L, Dinv) if deq is None else (L, Dinv, deq)
 
 
 def fused_cholesky_solve_batched(L, Dinv, B_rows, tb: int = 8, *,
-                                 device="cuda"):
+                                 device="cuda", out=None):
     """Batched multi-RHS solve: L (B, n, n), Dinv (B, n/64, 64, 64),
     B_rows (B, nrhs, n); B_rows may be an expanded view with batch
-    stride 0 (e.g. one identity for the whole batch)."""
+    stride 0 (e.g. one identity for the whole batch).  Returns X (B,
+    nrhs, n), written into and returned as `out` if given."""
     dev = resolve_device(device)
     check_on(dev, L, Dinv, B_rows)
     _check_dtype(L, Dinv, B_rows)
     Bsz, n, _ = L.shape
     if Bsz % tb or n % BP:
         raise ValueError("B must be divisible by tb and n by BP")
+    _check_out(out, "fused_cholesky_solve_batched", (L, Dinv, B_rows))
     if dev.type == "cpu":
-        return fused_cholesky_solve_batched_ref(L, Dinv, B_rows)
+        return _into(out, fused_cholesky_solve_batched_ref(L, Dinv, B_rows))
     X, kname = _launch_solve(L, Dinv, B_rows, B_rows.stride(0),
-                             B_rows.shape[1])
+                             B_rows.shape[1], out)
     fused_cholesky_solve_batched.launches += 1
     fused_cholesky_solve_batched.kernels[kname] += 1
     return X

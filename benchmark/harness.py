@@ -7,6 +7,17 @@ Everything particular to a cell is found by name: the cell in
 `traffic/`, its problem family under `problems/` (named by the
 configuration's "problem" key) and each metric's reader under
 `metrics/`.  Adding one needs no edit here.
+
+A problem family is a module with `make_pool`, `make_solver`,
+`make_control`, `record`, `keep` and `judge`.  Its `record(out)` gives
+a call's batch, optimal flags, iterations and host syncs, and may give
+`counters`, {name: number}, which the readers find with the harness's
+own per-call counters (`fused_chol.<wrapper>` launches and
+`ipm_graph.<count>`, reset before each call) in `Context.counters` (the
+window's calls) and `Context.trace_counters` (the profiled calls).  It
+may declare `KERNEL_SPANS`, more functions to put benchmark spans
+around in the traced slice (see `tracing`); a reader finds their calls
+by `Context.kernel_calls(kind)`.
 """
 
 from __future__ import annotations
@@ -92,8 +103,9 @@ class Context:
         self.__dict__.update(kw)
 
     def kernel_calls(self, kind):
-        """[(record, device seconds)] of the traced slice's factor or
-        solve wrapper calls whose kernels the trace shows."""
+        """[(record, device seconds)] of the traced slice's calls of a
+        kernel span's kind (`factor`, `solve` or one a problem family
+        declares) whose kernels the trace shows."""
         if not self.trace:
             return []
         dev = self.trace["span_device_s"]
@@ -124,9 +136,10 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
     if overrides:
         cfg = {**cfg, **overrides.get("config", {})}
         traffic = {**traffic, **overrides.get("traffic", {})}
-    family = load_module(os.path.join(HERE, "problems",
+    family = load_module(os.path.join(root, "benchmark", "problems",
                                       cfg["problem"] + ".py"),
                          "benchmark_problem_" + cfg["problem"])
+    from cvxopt_tpu_torch import ipm_graph
     from cvxopt_tpu_torch.ops import fused_chol as fc
     cuda = device == "cuda"
 
@@ -169,6 +182,7 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
     def one(k, span=False):
         batch = pool[k % len(pool)]
         fc.reset_launch_counts()
+        ipm_graph.reset_counts()
         t0 = time.perf_counter()
         if span:
             with torch.profiler.record_function(tracing.CALL):
@@ -180,7 +194,11 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
         t1 = time.perf_counter()
         lc = fc.launch_counts()
         rec = family.record(out)
-        rec.update(s=t1 - t0, t_end=t1,
+        counters = {f"fused_chol.{w}": v for w, v in lc.items()}
+        counters.update((f"ipm_graph.{c}", v)
+                        for c, v in ipm_graph.counts().items())
+        counters.update(rec.get("counters", {}))
+        rec.update(s=t1 - t0, t_end=t1, counters=counters,
                    factor_calls=sum(lc[w] for w in tracing.FACTOR))
         i = int(pick.integers(rec["batch"]))
         kept.append((k % len(pool), i, bool(rec["ok"][i]),
@@ -195,7 +213,8 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
     spans, reduced = [], None
     if trace:
         spans, reduced = tracing.profile_calls(
-            lambda k: one(nwin + k, span=True), traffic["trace_calls"])
+            lambda k: one(nwin + k, span=True), traffic["trace_calls"],
+            getattr(family, "KERNEL_SPANS", ()))
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     del solver, plain
     gc.collect()
@@ -221,10 +240,15 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
                                    .reshape(-1) for c in win]),
         host_syncs=[c["host_syncs"] for c in win],
         factor_calls=[c["factor_calls"] for c in win],
+        counters=[c["counters"] for c in win],
+        # the profiled calls the trace holds: the profiler's warm-up call
+        # comes first and is not recorded
+        trace_counters=[c["counters"] for c in calls[nwin + 1:]],
         trace=reduced, spans=spans, n_problem=cfg.get("n"))
     metrics = {}
     for m in cell_metrics(spec, name, trace):
-        reader = load_module(os.path.join(HERE, "metrics", m["name"] + ".py"),
+        reader = load_module(os.path.join(root, "benchmark", "metrics",
+                                          m["name"] + ".py"),
                              "benchmark_metric_" + m["name"].replace(".", "_"))
         value = reader.read(ctx)
         if value is not None:
@@ -245,7 +269,7 @@ def run_cell(name, seed, seconds, trace, *, device, t_start, root=ROOT,
               "device": dev}
     if reduced:
         result["breakdown"] = {"device_ops": reduced["device_ops"],
-                               "idle_gaps": reduced["idle_gaps"][:10]}
+                               "idle_gaps": reduced["idle_split"][:10]}
     result["checks"] = {k: {"value": worst[k], "limit": limits[k]}
                         for k in limits}
     return result

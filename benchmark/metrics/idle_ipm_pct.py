@@ -1,0 +1,10 @@
+"""Share of the traced slice's wall time in which the card was idle
+while the innermost program span open on the host was one of the IPM
+loop's (`cvx.ipm.start`, `.pass`, `.replay`, `.sync`), outside the
+benchmark's kernel spans (`tracing.reduce_trace`'s `program`)."""
+
+from benchmark import tracing
+
+
+def read(ctx):
+    return tracing.idle_pct(ctx.trace, "ipm")

@@ -19,6 +19,7 @@ Status codes: 0 optimal, 3 unknown (maxiters), 4 unknown (singular).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -58,6 +59,13 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
     ones, and the values computed here that a pass reads are pinned."""
     Bsz = q.shape[0]
     dev = q.device
+    conic = bool(dims.q or dims.s)
+
+    def cone_span(what):
+        # the cone layer's spans open on 'q'/'s' dims only, so that an
+        # 'l'-only trace keeps its span set
+        return span("cvx.cone." + what) if conic else contextlib.nullcontext()
+
     h = h.expand(Bsz, h.shape[-1])
     b = b.expand(Bsz, b.shape[-1])
     e = ipm_graph.pin(tape, "e", cones.cone_identity(dims, dtype=dtype,
@@ -79,12 +87,14 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
             xc, yc, zc = f0(-q, b, h)
             sc = -zc
             nrms = cones.snrm2(sc, dims)
-            ts = cones.max_step(sc, dims)
+            with cone_span("step"):
+                ts = cones.max_step(sc, dims)
             sc = torch.where(
                 _col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
                 sc + _col(1.0 + ts) * e, sc)
             nrmz = cones.snrm2(zc, dims)
-            tz = cones.max_step(zc, dims)
+            with cone_span("step"):
+                tz = cones.max_step(zc, dims)
             zc = torch.where(
                 _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
                 zc + _col(1.0 + tz) * e, zc)
@@ -103,7 +113,8 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
             if cold is not None:
                 # per-instance warm-start validation: non-finite or
                 # non-interior warm starts restart from the cold point
-                tsz_w = cones.max_step(torch.stack([s, z]), dims)
+                with cone_span("step"):
+                    tsz_w = cones.max_step(torch.stack([s, z]), dims)
                 valid = (torch.isfinite(x.sum(-1))
                          & torch.isfinite(y.sum(-1))
                          & (tsz_w[0] < 0) & (tsz_w[1] < 0))
@@ -113,7 +124,8 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
                               for u, c in zip((x, y, s, z), cold))
 
         def _mkstate(x_, y_, s_, z_):
-            W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
+            with cone_span("scaling"):
+                W_, lmbda_ = nt.compute_scaling(s_, z_, dims)
             kw = dict(dtype=dtype, device=dev)
             ikw = dict(dtype=torch.int32, device=dev)
             nan = torch.full((Bsz,), float("nan"), **kw)
@@ -175,7 +187,8 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         ws3 = cones.sprod(ds, dz, dims)
         ds_sc = nt.scale2(lmbda, ds, dims)
         dz_sc = nt.scale2(lmbda, dz, dims)
-        tsz = cones.max_step(torch.stack([ds_sc, dz_sc]), dims)
+        with cone_span("step"):
+            tsz = cones.max_step(torch.stack([ds_sc, dz_sc]), dims)
         t = torch.clamp(torch.maximum(tsz[0], tsz[1]), min=0.0)
         step = torch.where(t == 0.0, 1.0, torch.clamp(1.0 / t, max=1.0))
         sigma = torch.clamp(1.0 - step + dsdz / gap * step ** 2,
@@ -188,8 +201,9 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         (dx, dy, dz, ds), rr2 = f4(-rx, -ry, -rz, ds_in)
         ds_sc = nt.scale2(lmbda, ds, dims)
         dz_sc = nt.scale2(lmbda, dz, dims)
-        tsz, sig2, dq2 = cones.max_step_eig(
-            torch.stack([ds_sc, dz_sc]), dims)
+        with cone_span("step"):
+            tsz, sig2, dq2 = cones.max_step_eig(
+                torch.stack([ds_sc, dz_sc]), dims)
         sigs, sigz = sig2[0], sig2[1]
         ds_q, dz_q = dq2[0], dq2[1]
         t = torch.clamp(torch.maximum(tsz[0], tsz[1]), min=0.0)
@@ -226,7 +240,8 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
             ds2 = torch.cat(ps, dim=-1)
             dz2 = torch.cat(pz, dim=-1)
 
-        W2, lmbda2 = nt.update_scaling(W, lmbda, ds2, dz2, dims)
+        with cone_span("scaling"):
+            W2, lmbda2 = nt.update_scaling(W, lmbda, ds2, dz2, dims)
 
         lam_full = cones.diag_embed(lmbda2, dims)
         s2 = nt.scale(lam_full, W2, dims, trans="T")
@@ -339,8 +354,9 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         final = _run_loop(st2, lambda st: _body(st, factor_W64, False),
                           syncs)
         rescue_iters = final["iters"] - st1["iters"]
-    ts = cones.max_step(final["s"], dims)
-    tz = cones.max_step(final["z"], dims)
+    with cone_span("step"):
+        ts = cones.max_step(final["s"], dims)
+        tz = cones.max_step(final["z"], dims)
     return dict(
         x=final["x"], y=final["y"], s=final["s"], z=final["z"],
         status=final["status"], iterations=final["iters"],

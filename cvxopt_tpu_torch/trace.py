@@ -4,11 +4,14 @@
         ...
 
 A span is named ``cvx.<layer>.<what>``, with <layer> one of frontend,
-cascade, ipm and kkt; a ``cvx.<layer>.sync`` span wraps one host read of
-a device value.  While a `torch.profiler` session records, a span is a
-``torch.profiler.record_function`` range: it lands on the profiler's
-timeline beside the kernels it launches, and the profiler's chrome trace
-exports it.  Spans of one solver call nest under its root span
+cascade, ipm, cone and kkt; a ``cvx.<layer>.sync`` span wraps one host
+read of a device value.  The cone layer's two, ``cvx.cone.scaling``
+(the NT scaling's computation and update) and ``cvx.cone.step`` (the
+steps to the cones' boundary), open in coneqp's IPM loop on dims with
+a 'q' or 's' part only.  While a `torch.profiler` session records, a
+span is a ``torch.profiler.record_function`` range: it lands on the
+profiler's timeline beside the kernels it launches, and the profiler's
+chrome trace exports it.  Spans of one solver call nest under its root span
 (``cvx.frontend.*`` or ``cvx.cascade.solve``) on the calling thread.
 With no session recording, a span is one flag read and a shared no-op
 context; there is no switch besides the profiler itself.

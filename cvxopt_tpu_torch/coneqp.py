@@ -37,8 +37,8 @@ from cvxopt_tpu_torch.conelp import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STRINGS,
     STEP, EXPON, RESCUE_STALL_ITERS, RESCUE_RELRES, _prep_inputs,
-    _run_loop, _restart_state, _tensors, _unbatch, rescue_compacted,
-    _lp_maps, _start_values,
+    _run_loop, _running, _restart_state, _tensors, _unbatch,
+    rescue_compacted, _lp_maps, _start_values,
 )
 from cvxopt_tpu_torch._tree import (
     _col, _where, _tnorm_parts, _is_operator, _per_instance_factor,
@@ -56,7 +56,12 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
     batched) with all linear maps as closures on batched vectors.  With
     an `ipm_graph.Tape` (single-phase only) the passes replay it: the
     inputs the maps, the factor and q, h, b read are the tape's pinned
-    ones, and the values computed here that a pass reads are pinned."""
+    ones, and the values computed here that a pass reads are pinned.
+
+    A pass steps the running instances and then tests the new point's
+    exit, and the start tests the initial point, so the one status read
+    before each pass already sees every instance that is done: the loop
+    factors only for steps it takes."""
     Bsz = q.shape[0]
     dev = q.device
     conic = bool(dims.q or dims.s)
@@ -78,10 +83,99 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         ("resy0", torch.linalg.vector_norm(b, dim=-1)),
         ("resz0", cones.snrm2(h, dims))))
 
+    def _measure(pres, dres, gap, relgap):
+        """The convergence measure of a point (1 at the tolerances)."""
+        return torch.maximum(torch.maximum(pres, dres) / feastol,
+                             torch.minimum(gap / abstol, relgap / reltol))
+
+    def _evaluate(st, rescue):
+        """st with the residuals, costs and exit status of its point
+        (coneprog.py:2169-2204): RUNNING, or the code it exits with."""
+        x, y, s, z, gap = st["x"], st["y"], st["s"], st["z"], st["gap"]
+        Px = Pf(x)
+        rx = Px + q + ATf(y) + GTf(z)
+        f0_ = 0.5 * vdot(x, Px) + vdot(x, q)
+        resx = torch.linalg.vector_norm(rx, dim=-1)
+        ry = Af(x) - b
+        resy = torch.linalg.vector_norm(ry, dim=-1)
+        rz = s + Gf(x) - h
+        resz = cones.snrm2(rz, dims)
+
+        pcost = f0_
+        dcost = f0_ + vdot(y, ry) + cones.sdot(z, rz, dims) - gap
+        relgap = torch.where(
+            pcost < 0.0, gap / -pcost,
+            torch.where(dcost > 0.0, gap / dcost,
+                        torch.full_like(gap, float("inf"))))
+        pres = torch.maximum(resy / resy0, resz / resz0)
+        dres = resx / resx0
+
+        optimal = ((pres <= feastol) & (dres <= feastol)
+                   & ((gap <= abstol) | (relgap <= reltol)))
+        maxed = st["iters"] >= st["max_it"]
+
+        m = _measure(pres, dres, gap, relgap)
+        improved = m < 0.995 * st["best_m"]
+        stall2 = torch.where(improved, 0, st["stall"] + 1)
+        best2 = torch.minimum(st["best_m"], m)
+        if rescue:
+            collapse = (gap <= abstol) & (m > 10.0)
+            regressed = m > 100.0 * st["best_m"]
+            stalled = ((stall2 >= RESCUE_STALL_ITERS) | collapse
+                       | regressed)
+        else:
+            stalled = torch.zeros_like(optimal)
+
+        status = torch.full_like(st["status"], STATUS_RUNNING)
+        status = torch.where(stalled, STATUS_NEEDS_F64, status)
+        status = torch.where(maxed, STATUS_UNKNOWN_MAXITERS, status)
+        status = torch.where(optimal, STATUS_OPTIMAL, status)
+        return dict(st, rx=rx, ry=ry, rz=rz, pcost=pcost, dcost=dcost,
+                    relgap=relgap, pres=pres, dres=dres, best_m=best2,
+                    stall=stall2.to(torch.int32), status=status)
+
+    def _progress(st):
+        for k in range(Bsz):
+            print(f"{int(st['iters'][k]):2d}: {float(st['pcost'][k]): 8.4e} "
+                  f"{float(st['dcost'][k]): 8.4e} {float(st['gap'][k]): 4.0e} "
+                  f"{float(st['pres'][k]):7.0e} {float(st['dres'][k]):7.0e}")
+
+    syncs = [0]
+
     # ---- initial point (coneprog.py:2044-2149) -----------------------
     with span("cvx.ipm.start"):
+        warm = valid = None
+        need_cold = (initvals is None or factor_W64 is not None
+                     or detect_rescue)
+        if initvals is not None:
+            def iv(k, default):
+                v = initvals.get(k)
+                v = default if v is None else v
+                return v.to(dtype).expand(Bsz, default.shape[-1])
+            warm = (iv("x", q.new_zeros((Bsz, n))),
+                    iv("y", q.new_zeros((Bsz, p))),
+                    iv("s", e.expand(Bsz, e.shape[0])),
+                    iv("z", e.expand(Bsz, e.shape[0])))
+        if warm is not None and need_cold:
+            # per-instance warm-start validation: non-finite or
+            # non-interior warm starts restart from the cold point
+            x, y, s, z = warm
+            with cone_span("step"):
+                tsz_w = cones.max_step(torch.stack([s, z]), dims)
+            valid = (torch.isfinite(x.sum(-1)) & torch.isfinite(y.sum(-1))
+                     & (tsz_w[0] < 0) & (tsz_w[1] < 0))
+            if "_valid" in initvals:
+                valid = valid & initvals["_valid"]
+            if factor_W64 is None:
+                # without a restart phase the cold point serves only the
+                # invalid warm starts: build it only if there is one
+                syncs[0] += 1
+                with span("cvx.ipm.sync"):
+                    need_cold = not bool(valid.all())
+            ipm_graph.COUNTS["cold_starts" if need_cold
+                             else "cold_skips"] += 1
         cold = None
-        if initvals is None or factor_W64 is not None or detect_rescue:
+        if need_cold:
             f0 = factor_W(nt.identity_scaling(dims, dtype=dtype,
                                               device=dev, batch=(Bsz,)))
             xc, yc, zc = f0(-q, b, h)
@@ -99,29 +193,12 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
                 _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
                 zc + _col(1.0 + tz) * e, zc)
             cold = (xc, yc, sc, zc)
-        if initvals is None:
+        if warm is None:
             x, y, s, z = cold
+        elif cold is None:
+            x, y, s, z = warm
         else:
-            def iv(k, default):
-                v = initvals.get(k)
-                v = default if v is None else v
-                return v.to(dtype).expand(Bsz, default.shape[-1])
-            x = iv("x", q.new_zeros((Bsz, n)))
-            y = iv("y", q.new_zeros((Bsz, p)))
-            s = iv("s", e.expand(Bsz, e.shape[0]))
-            z = iv("z", e.expand(Bsz, e.shape[0]))
-            if cold is not None:
-                # per-instance warm-start validation: non-finite or
-                # non-interior warm starts restart from the cold point
-                with cone_span("step"):
-                    tsz_w = cones.max_step(torch.stack([s, z]), dims)
-                valid = (torch.isfinite(x.sum(-1))
-                         & torch.isfinite(y.sum(-1))
-                         & (tsz_w[0] < 0) & (tsz_w[1] < 0))
-                if "_valid" in initvals:
-                    valid = valid & initvals["_valid"]
-                x, y, s, z = (_where(valid, u, c)
-                              for u, c in zip((x, y, s, z), cold))
+            x, y, s, z = (_where(valid, u, c) for u, c in zip(warm, cold))
 
         def _mkstate(x_, y_, s_, z_):
             with cone_span("scaling"):
@@ -143,6 +220,10 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         state = _mkstate(x, y, s, z)
         state0 = state if cold is None or initvals is None \
             else _mkstate(*cold)
+        # the first status read sees the instances the start point ends
+        state = _evaluate(state, detect_rescue or factor_W64 is not None)
+        if show_progress:
+            _progress(state)
 
     def _iteration(fW, x, y, s, z, W, lmbda, gap, rx, ry, rz):
         lmbdasq = cones.ssqr(lmbda, dims)
@@ -250,59 +331,10 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         return x, y, s2, z2, W2, lmbda2, gap2, torch.maximum(rr1, rr2)
 
     def _body(st, fW, rescue):
-        x, y, s, z = st["x"], st["y"], st["s"], st["z"]
-        W, lmbda, gap = st["W"], st["lmbda"], st["gap"]
-        iters = st["iters"]
-
-        # ---- residuals (coneprog.py:2169-2204) -----------------------
-        Px = Pf(x)
-        rx = Px + q + ATf(y) + GTf(z)
-        f0_ = 0.5 * vdot(x, Px) + vdot(x, q)
-        resx = torch.linalg.vector_norm(rx, dim=-1)
-        ry = Af(x) - b
-        resy = torch.linalg.vector_norm(ry, dim=-1)
-        rz = s + Gf(x) - h
-        resz = cones.snrm2(rz, dims)
-
-        pcost = f0_
-        dcost = f0_ + vdot(y, ry) + cones.sdot(z, rz, dims) - gap
-        relgap = torch.where(
-            pcost < 0.0, gap / -pcost,
-            torch.where(dcost > 0.0, gap / dcost,
-                        torch.full_like(gap, float("inf"))))
-        pres = torch.maximum(resy / resy0, resz / resz0)
-        dres = resx / resx0
-
-        if show_progress:
-            for k in range(Bsz):
-                print(f"{int(iters[k]):2d}: {float(pcost[k]): 8.4e} "
-                      f"{float(dcost[k]): 8.4e} {float(gap[k]): 4.0e} "
-                      f"{float(pres[k]):7.0e} {float(dres[k]):7.0e}")
-
-        optimal = ((pres <= feastol) & (dres <= feastol)
-                   & ((gap <= abstol) | (relgap <= reltol)))
-        maxed = iters >= st["max_it"]
-
-        m = torch.maximum(torch.maximum(pres, dres) / feastol,
-                          torch.minimum(gap / abstol, relgap / reltol))
-        improved = m < 0.995 * st["best_m"]
-        stall2 = torch.where(improved, 0, st["stall"] + 1)
-        best2 = torch.minimum(st["best_m"], m)
-        if rescue:
-            collapse = (gap <= abstol) & (m > 10.0)
-            regressed = m > 100.0 * st["best_m"]
-            stalled = ((stall2 >= RESCUE_STALL_ITERS) | collapse
-                       | regressed)
-        else:
-            stalled = torch.zeros_like(optimal)
-
-        new_status = torch.full_like(st["status"], STATUS_RUNNING)
-        new_status = torch.where(stalled, STATUS_NEEDS_F64, new_status)
-        new_status = torch.where(maxed, STATUS_UNKNOWN_MAXITERS, new_status)
-        new_status = torch.where(optimal, STATUS_OPTIMAL, new_status)
-        exiting = new_status != STATUS_RUNNING
-
-        upd = _iteration(fW, x, y, s, z, W, lmbda, gap, rx, ry, rz)
+        """One step from st's point, then the exit test of the new one."""
+        upd = _iteration(fW, st["x"], st["y"], st["s"], st["z"], st["W"],
+                         st["lmbda"], st["gap"], st["rx"], st["ry"],
+                         st["rz"])
         x2, y2, s2, z2, W2, lmbda2, gap2, relres = upd
 
         if debug:
@@ -317,28 +349,25 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
             # condition-halved 'cholqr' on q/s cones, whose normwise
             # residual expansion is expected and benign
             if relres_trigger:
+                m = _measure(st["pres"], st["dres"], st["gap"],
+                             st["relgap"])
                 fail = fail | ((relres > RESCUE_RELRES) & (m > 100.0))
             fail_status = STATUS_NEEDS_F64
         else:
             fail_status = STATUS_UNKNOWN_SINGULAR
-        new_status = torch.where(
-            exiting, new_status,
-            torch.where(fail, fail_status, STATUS_RUNNING)
-            .to(new_status.dtype))
-        keep = exiting | fail
 
-        out = dict(st)
-        out.update(pcost=pcost, dcost=dcost, relgap=relgap,
-                   pres=pres, dres=dres, best_m=best2,
-                   stall=stall2.to(torch.int32))
-        out["status"] = new_status
-        out["iters"] = iters + (~keep).to(torch.int32)
-        for k, new in (("x", x2), ("y", y2), ("s", s2), ("z", z2),
-                       ("W", W2), ("lmbda", lmbda2), ("gap", gap2)):
-            out[k] = _where(keep, st[k], new)
+        new = _evaluate(dict(st, x=x2, y=y2, s=s2, z=z2, W=W2,
+                             lmbda=lmbda2, gap=gap2,
+                             iters=st["iters"] + 1), rescue)
+        # a failed step is discarded: the instance keeps its point and
+        # its evaluation, and exits with the failure's status
+        out = {k: _where(fail, st[k], new[k]) for k in st}
+        out["status"] = torch.where(fail, fail_status, new["status"]).to(
+            torch.int32)
+        if show_progress and bool((_running(st) & ~fail).any()):
+            _progress(out)
         return out
 
-    syncs = [0]
     if factor_W64 is None:
         final = _run_loop(state,
                           lambda st: _body(st, factor_W, detect_rescue),
@@ -351,6 +380,9 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         st1 = _run_loop(state, lambda st: _body(st, factor_W, True), syncs)
         st2 = _restart_state(st1, state0, ("x", "y", "s", "z", "W",
                                            "lmbda", "gap"), maxiters)
+        # the restarted instances enter the loop with their point's status
+        restarted = _running(st2)
+        st2 = _where(restarted, _evaluate(st2, False), st2)
         final = _run_loop(st2, lambda st: _body(st, factor_W64, False),
                           syncs)
         rescue_iters = final["iters"] - st1["iters"]

@@ -41,11 +41,14 @@ thread at a time.  Inside a replayed pass, the program's spans
 
 `counts()` gives the captures, the passes run from a tape (`replays`,
 the recording pass included) and the eager passes of every IPM loop
-since `reset_counts()`.
+since `reset_counts()`, and, of the loops given a warm start, those
+that built the cold start point (`cold_starts`) and those that skipped
+it because every warm start was valid (`cold_skips`).
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import warnings
 
@@ -55,13 +58,15 @@ from cvxopt_tpu_torch.ops import fused_chol as fc
 from cvxopt_tpu_torch.trace import span
 from cvxopt_tpu_torch._tree import _leaves, _tmap
 
-COUNTS = dict.fromkeys(("captures", "replays", "eager_passes"), 0)
+COUNTS = dict.fromkeys(("captures", "replays", "eager_passes",
+                        "cold_starts", "cold_skips"), 0)
 
 _local = threading.local()
 
 
 def counts():
-    """Captures, tape replays and eager passes since `reset_counts`."""
+    """Captures, tape replays, eager passes and warm-started loops'
+    cold start points built and skipped since `reset_counts`."""
     return dict(COUNTS)
 
 
@@ -183,6 +188,11 @@ class Tape:
         side.wait_stream(main)
         self.parts = []
         _local.tape = self
+        # a graph that the garbage collector frees while this tape
+        # captures (another solver's tapes) ends the capture: collect
+        # only after it
+        collect = gc.isenabled()
+        gc.disable()
         with torch.cuda.stream(side):
             try:
                 self._begin()
@@ -196,6 +206,8 @@ class Tape:
                 raise
             finally:
                 _local.tape = None
+                if collect:
+                    gc.enable()
         main.wait_stream(side)
         COUNTS["captures"] += 1
 

@@ -13,6 +13,8 @@ they skip without a card.  This file imports no jax:
         tests/test_torch_ipm_graph.py
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -95,7 +97,7 @@ def check_against_eager(make, calls, captures):
     (eager) solver beside each: equal results, host syncs and wrapper
     calls; `captures` captures on the second call, none on the others;
     from the second call on every pass replayed (a cascade's phase A and
-    B passes)."""
+    B passes; phase B reads its warm starts' validity once besides)."""
     taped = make()
     for k, data in enumerate(calls):
         before = ipm_graph.counts()
@@ -116,7 +118,7 @@ def check_against_eager(make, calls, captures):
             assert got["replays"] == out["host_syncs"] - 1
         else:
             assert prof["a_replays"] == prof["a_host_syncs"] - 1
-            assert prof["b_replays"] == prof["b_host_syncs"] - 1
+            assert prof["b_replays"] == prof["b_host_syncs"] - 2
             assert prof["captures"] == got["captures"]
             for c in ("a_host_syncs", "c_instances"):
                 assert prof[c] == ref["profile"][c], c
@@ -378,3 +380,36 @@ def test_taped_calls_keep_the_benchmarks_kernel_spans(cuda_device):
               if (rec["kind"], i) in dev]
     assert traced and all(dev[key] > 0.0 for key in traced)
     assert {kind for kind, _ in traced} == {"factor", "solve"}
+
+
+
+@pytest.mark.gpu
+def test_the_collector_waits_while_a_tape_records(cuda_device):
+    """A graph that the cyclic garbage collector frees during a capture
+    (another solver's tapes, left as garbage) ends that capture, so the
+    collector is paused while a tape records, and resumed after it, also
+    when the recorded pass raises."""
+    seen = []
+
+    def step(st):
+        seen.append(gc.isenabled())
+        return {"x": st["x"] + 1.0, "status": st["status"] + 1}
+
+    def more(st):
+        return (st["status"] < 3).any()
+
+    st = {"x": torch.zeros(4, device=cuda_device),
+          "status": torch.zeros(4, dtype=torch.int32, device=cuda_device)}
+    assert gc.isenabled()
+    out = ipm_graph.Tape(ipm_graph.Tapes(cuda_device)).run(st, step, more,
+                                                           [0])
+    assert seen == [False]           # recorded once, replayed after
+    assert gc.isenabled()
+    assert out["x"].tolist() == [3.0] * 4
+
+    def bad(st):
+        raise ValueError("pass")
+
+    with pytest.raises(ValueError, match="pass"):
+        ipm_graph.Tape(ipm_graph.Tapes(cuda_device)).run(st, bad, more, [0])
+    assert gc.isenabled()

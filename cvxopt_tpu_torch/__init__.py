@@ -25,7 +25,10 @@ sparse COO tensor, `sparse`, `spdiag`) with the elementwise functions,
 and `normal`/`uniform`/`setseed`/`getseed` on a seeded torch.Generator.
 
 Module and public names follow `cvxopt_tpu`, so each function has a
-twin there.  This package imports torch, numpy and scipy only.
+twin there, but for two layers of the port's own: `ipm` (the status
+codes, the IPM loop and the cascade's run that the JAX package keeps in
+`conelp` and `coneqp`) and `ipm_graph` (the CUDA-graph tapes).  This
+package imports torch, numpy and scipy only.
 
 The IPM diverges on reduced-precision matmul passes, so TF32 is turned
 off for matmuls and cuDNN when the package is imported.

@@ -33,144 +33,30 @@ Status codes: 0 optimal, 1 primal infeasible, 2 dual infeasible,
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from cvxopt_tpu_torch import cones
 from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
-from cvxopt_tpu_torch import ipm_graph
+from cvxopt_tpu_torch import ipm
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
 from cvxopt_tpu_torch.trace import span, spanned
+from cvxopt_tpu_torch.ipm import (
+    STATUS_RUNNING, STATUS_OPTIMAL, STATUS_PRIMAL_INFEASIBLE,
+    STATUS_DUAL_INFEASIBLE, STATUS_UNKNOWN_MAXITERS,
+    STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STALLED,
+    STATUS_STRINGS, STEP, EXPON, RESCUE_STALL_ITERS, RESCUE_RELRES,
+    _run_loop, _restart_state, _tensors, _lp_maps, _unbatch, _prep_inputs,
+    _start_values,
+)
 from cvxopt_tpu_torch._tree import (
     _col, _tmap, _leaves, _where, _tdot, _tnorm, _tzeros, _tneg, _tscale,
-    _taxpy, _tadd, _tsub, _tnorm_parts, _take, _is_operator,
-    _per_instance_factor, _operator_maps,
+    _taxpy, _tadd, _tsub, _tnorm_parts, _is_operator, _per_instance_factor,
 )
-
-STATUS_RUNNING = -1
-STATUS_OPTIMAL = 0
-STATUS_PRIMAL_INFEASIBLE = 1
-STATUS_DUAL_INFEASIBLE = 2
-STATUS_UNKNOWN_MAXITERS = 3
-STATUS_UNKNOWN_SINGULAR = 4
-# internal only: instance handed from the mixed-precision phase to the
-# full-precision rescue phase (never escapes the solver)
-STATUS_NEEDS_F64 = 5
-# internal only: the stall detector fired with `stall_exit` set; the
-# host refresh loop (make_conelp_refresh) restarts from this iterate
-# with a freshly computed scaling
-STATUS_STALLED = 6
-
-# mixed-precision rescue triggers (per instance, outcome-based):
-# RESCUE_STALL_ITERS non-improving iterations, a >100x regression of the
-# convergence measure, a gap collapse with residuals >10x feastol, or a
-# refinement round that expands the residual (relres > RESCUE_RELRES).
-RESCUE_STALL_ITERS = 4
-RESCUE_RELRES = 1.0
-
-STATUS_STRINGS = {
-    STATUS_OPTIMAL: "optimal",
-    STATUS_PRIMAL_INFEASIBLE: "primal infeasible",
-    STATUS_DUAL_INFEASIBLE: "dual infeasible",
-    STATUS_UNKNOWN_MAXITERS: "unknown",
-    STATUS_UNKNOWN_SINGULAR: "unknown",
-    STATUS_STALLED: "unknown",
-}
-
-# step and centering exponent (coneprog.py:423-424)
-STEP = 0.99
-EXPON = 3
-
-
-def _running(st):
-    return st["status"] == STATUS_RUNNING
-
-
-def _run_loop(st, body, syncs, tape=None):
-    """Iterate `body` while any instance is running; instances that are
-    not keep their state.  Each pass is a `cvx.ipm.pass` span; each
-    check of the status, counted in ``syncs[0]``, a `cvx.ipm.sync`.
-    With an `ipm_graph.Tape` the passes are replayed from it."""
-    if tape is not None:
-        def step(st):
-            running = _running(st)
-            new = body(st)
-            return {k: _where(running, new[k], st[k]) for k in st}
-        return tape.run(st, step, lambda st: _running(st).any(), syncs)
-    while True:
-        running = _running(st)
-        syncs[0] += 1
-        with span("cvx.ipm.sync"):
-            more = bool(running.any())     # the one host sync per pass
-        if not more:
-            return st
-        with span("cvx.ipm.pass"):
-            ipm_graph.COUNTS["eager_passes"] += 1
-            new = body(st)
-            st = {k: _where(running, new[k], st[k]) for k in st}
-
-
-def _restart_state(st1, state0, keys, maxiters):
-    """Second-phase state of the two-phase rescue: the instances phase 1
-    flagged restart from `state0` with a fresh iteration budget."""
-    it1 = st1["iters"]
-    was64 = st1["status"] == STATUS_NEEDS_F64
-    st2 = dict(st1)
-    for k in keys:
-        st2[k] = _where(was64, state0[k], st1[k])
-    st2["status"] = torch.where(
-        was64, STATUS_RUNNING, st1["status"]).to(torch.int32)
-    st2["stall"] = torch.zeros_like(st1["stall"])
-    st2["best_m"] = torch.full_like(st1["best_m"], float("inf"))
-    st2["max_it"] = torch.where(was64, it1 + maxiters,
-                                st1["max_it"]).to(torch.int32)
-    return st2
-
-
-def rescue_compacted(raw, out_keys, run_batch, dev, syncs):
-    """Phase C of the cascades: gather the instances whose status is
-    NEEDS_F64 into batches padded to a power of two (the first straggler
-    repeated in the padding lanes), solve each with ``run_batch(index
-    tensor)`` and scatter `out_keys` back into `raw`.  Sets
-    ``raw['rescue_iterations']``, adds it to ``raw['iterations']`` and
-    returns the number of flagged instances.  Adds the phase's host
-    syncs to ``syncs[0]``: its reads of the status and of each batch's
-    iterations, each a `cvx.cascade.sync` span, and each batch solve's
-    ``host_syncs``."""
-    syncs[0] += 1
-    with span("cvx.cascade.sync"):
-        status = raw["status"].cpu().numpy()
-    (flagged,) = np.nonzero(status == STATUS_NEEDS_F64)
-    raw["rescue_iterations"] = torch.zeros_like(raw["iterations"])
-    if not flagged.size:
-        return 0
-    nb = status.shape[0]
-    R = min(1 << max(int(np.ceil(np.log2(flagged.size))), 0), nb)
-    resc = np.zeros((nb,), np.int32)
-    for k0 in range(0, flagged.size, R):
-        part = flagged[k0:k0 + R]
-        idx = np.full((R,), part[0], dtype=np.int64)
-        idx[:part.size] = part
-        sub = run_batch(torch.as_tensor(idx, device=dev))
-        dst_np, src_np = np.unique(idx, return_index=True)
-        src = torch.as_tensor(src_np, device=dev)
-        dst = torch.as_tensor(dst_np, device=dev)
-        for k in out_keys:
-            raw[k] = raw[k].clone()
-            raw[k][dst] = sub[k][src]
-        syncs[0] += sub["host_syncs"] + 1
-        with span("cvx.cascade.sync"):
-            its = sub["iterations"].cpu().numpy()
-        resc[dst_np] = its[src_np]
-    raw["rescue_iterations"] = torch.as_tensor(resc, device=dev)
-    raw["iterations"] = raw["iterations"] + raw["rescue_iterations"]
-    return int(flagged.size)
 
 
 def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
@@ -187,7 +73,6 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
     h = h.expand(Bsz, h.shape[-1])
     b = b.expand(Bsz, b.shape[-1])
     e = cones.cone_identity(dims, dtype=dtype, device=dev)
-    e_lq = e[:dims.lnl + dims.qdim]
     kw = dict(dtype=dtype, device=dev)
     ikw = dict(dtype=torch.int32, device=dev)
 
@@ -207,19 +92,10 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
                                             batch=(Bsz,)))
             # solve [0 A' G'; A 0 0; G 0 -I][x;dy;-s] = [0;b;h]
             xc, _, ms = f0(_tzeros(c), b, h)
-            sc = -ms
-            nrms = cones.snrm2(sc, dims)
-            ts = cones.max_step(sc, dims)
-            sc = torch.where(
-                _col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
-                sc + _col(1.0 + ts) * e, sc)
             # solve [...][dx;y;z] = [-c;0;0]
             _, yc, zc = f0(_tneg(c), _tzeros(b), torch.zeros_like(h))
-            nrmz = cones.snrm2(zc, dims)
-            tz = cones.max_step(zc, dims)
-            zc = torch.where(
-                _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
-                zc + _col(1.0 + tz) * e, zc)
+            sc, zc = (cones.push_interior(u, cones.max_step(u, dims), e, dims)
+                      for u in (-ms, zc))
             cold = (xc, yc, sc, zc)
 
         def start(d, k):
@@ -359,8 +235,6 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
             _tscale(om, rx), _tscale(om, ry), _col(om) * rz, om * rt,
             ds_in, dk_in)
         t, sig2, dq2 = step_bound(ds, dz, dtau, dkappa, True)
-        sigs, sigz = sig2[0], sig2[1]
-        ds_q, dz_q = dq2[0], dq2[1]
         tt = -dtau / lg
         tk = -dkappa / lg
         step = torch.where(t == 0.0, 1.0, torch.clamp(STEP / t, max=1.0))
@@ -369,44 +243,14 @@ def _conelp_solve(dims: ConeDims, *, factor, Gf, GTf, Af, ATf, c, h, b,
         x = _taxpy(step, dx, x)
         y = _taxpy(step, dy, y)
 
-        nlq = dims.lnl + dims.qdim
-        ds2 = torch.cat([e_lq + _col(step) * ds_q[:, :nlq],
-                         ds_q[:, nlq:]], dim=-1)
-        dz2 = torch.cat([e_lq + _col(step) * dz_q[:, :nlq],
-                         dz_q[:, nlq:]], dim=-1)
-        ds2 = nt.scale2(lmbda, ds2, dims, inverse="I")
-        dz2 = nt.scale2(lmbda, dz2, dims, inverse="I")
-
-        if dims.s:
-            lam_s = lmbda[:, nlq:]
-            sig_s = (1.0 + _col(step) * sigs) / lam_s
-            sig_z = (1.0 + _col(step) * sigz) / lam_s
-            ps, pz = [ds2[:, :dims.offs]], [dz2[:, :dims.offs]]
-            for run in dims.s_runs:
-                _, doff, cnt, m = run
-                i0 = doff - nlq
-                cs = torch.sqrt(sig_s[:, i0:i0 + cnt * m]).reshape(
-                    Bsz, cnt, m)
-                cz = torch.sqrt(sig_z[:, i0:i0 + cnt * m]).reshape(
-                    Bsz, cnt, m)
-                ps.append((cones.sview(ds2, run)
-                           * cs[..., None, :]).reshape(Bsz, -1))
-                pz.append((cones.sview(dz2, run)
-                           * cz[..., None, :]).reshape(Bsz, -1))
-            ds2 = torch.cat(ps, dim=-1)
-            dz2 = torch.cat(pz, dim=-1)
-
+        ds2, dz2 = nt.update_args(lmbda, dq2, sig2, step, e, dims)
         W2, lmbda2 = nt.update_scaling(W, lmbda, ds2, dz2, dims)
 
         dg2 = dg * torch.sqrt(1.0 - step * tk) / torch.sqrt(1.0 - step * tt)
         dgi2 = 1.0 / dg2
         lg2 = lg * torch.sqrt(1.0 - step * tt) * torch.sqrt(1.0 - step * tk)
 
-        # unscale s, z from lambda (coneprog.py:1413-1433)
-        lam_full = cones.diag_embed(lmbda2, dims)
-        s2 = nt.scale(lam_full, W2, dims, trans="T")
-        z2 = nt.scale(lam_full, W2, dims, inverse="I")
-
+        s2, z2 = nt.unscale(lmbda2, W2, dims)
         kappa2 = lg2 / dgi2
         tau2 = lg2 * dgi2
         gap2 = (torch.linalg.vector_norm(lmbda2, dim=-1) / tau2) ** 2
@@ -593,18 +437,6 @@ def _relres_trigger(dims, kktsolver) -> bool:
                 and kktsolver.startswith(("qr", "cholqr")))
 
 
-def _tensors(dev, *arrays, dtype=None):
-    return tuple(torch.as_tensor(a, device=dev, dtype=dtype)
-                 for a in arrays)
-
-
-def _lp_maps(G, A):
-    """Batched linear-map closures for G, A (dense or operator-form)."""
-    Gf, GTf = _operator_maps(G)
-    Af, ATf = _operator_maps(A)
-    return dict(Gf=Gf, GTf=GTf, Af=Af, ATf=ATf)
-
-
 def _factors(kktsolver, G, dims, A, kktreg, factor_dtype):
     """(factor, factor64) for a `factor_dtype` mode: 'rescue' is an f32
     factor with an f64 restart phase, 'f64_restart' the f64 factor of
@@ -619,13 +451,6 @@ def _factors(kktsolver, G, dims, A, kktreg, factor_dtype):
                                     factor_dtype="float32"), factor64
     return kktmod.get_kktsolver(kktsolver, G, dims, A, kktreg=kktreg,
                                 factor_dtype=factor_dtype), None
-
-
-def _unbatch(raw):
-    """One instance's results: tensors and trees of tensors lose the
-    batch axis, anything else (counters) stays."""
-    return {k: (_take(v, 0) if torch.is_tensor(_leaves(v)[0]) else v)
-            for k, v in raw.items()}
 
 
 def make_conelp(dims: ConeDims, kktsolver: str = "default",
@@ -782,17 +607,18 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
          the host into a power-of-two padded batch.
 
     Instances phase A could not finish, or flagged infeasible at 1e-4,
-    restart cold in phase B.  Total `iterations` counts all phases.
-    With ``instrument`` the result holds per-phase wall seconds, host
-    syncs and iteration sums under ``profile``.  A call is a
-    `cvx.cascade.solve` span, its phases `cvx.cascade.a`, `.b`, `.c`."""
+    restart cold in phase B.  The phases run in `ipm.cascade`, as for
+    coneqp.make_coneqp_cascade: total `iterations` counts all phases,
+    ``instrument`` adds the ``profile`` (whose tape counters read 0:
+    conelp replays no IPM tape), and the phases are also reachable as
+    ``solve.phase_a`` (which casts its arguments to float32),
+    ``solve.phase_b`` and ``solve.phase_c``."""
     dev = resolve_device(device)
     kktsolver, refinement = _resolve_opts(dims, kktsolver, refinement)
-    f32 = torch.float32
     tols = dict(maxiters=maxiters, abstol=abstol, reltol=reltol,
                 feastol=feastol, kktreg=kktreg, device=dev)
 
-    phase_a = make_conelp(
+    core_a = make_conelp(
         dims, kktsolver=kktsolver, maxiters=maxiters,
         abstol=max(phase1_tol, abstol), reltol=max(phase1_tol, reltol),
         feastol=max(phase1_tol, feastol), refinement=0, kktreg=kktreg,
@@ -804,140 +630,24 @@ def make_conelp_cascade(dims: ConeDims, kktsolver: str = "default",
         dims, kktsolver=kktmod.robust_name(kktsolver),
         refinement=max(1, refinement), **tols)
 
-    out_keys = ("x", "y", "s", "z", "status", "gap", "relgap",
-                "pcost", "dcost", "pres", "dres", "pinfres",
-                "dinfres", "primal_slack", "dual_slack")
+    def phase_a(c, G, h, A, b):
+        return core_a(*(u.to(torch.float32) for u in (c, G, h, A, b)))
 
-    def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    @spanned("cvx.cascade.solve")
-    def solve(c, G, h, A, b):
-        c, G, h, A, b = _tensors(dev, c, G, h, A, b)
-        dt = c.dtype
-        prof = {}
-        t0 = time.perf_counter()
-        with span("cvx.cascade.a"):
-            raw_a = phase_a(*(u.to(f32) for u in (c, G, h, A, b)))
-        if instrument:
-            _sync()
-            prof["a_iters"] = int(raw_a["iterations"].sum())
-            prof["a_s"] = time.perf_counter() - t0
-            prof["a_host_syncs"] = raw_a["host_syncs"]
+    def handoff(raw_a, args):
         # instances phase A could not finish hand over garbage
         # iterates: poison them with NaN so that the warm-start validity
         # check sends them straight to the cold start
+        dt = args[0].dtype
         ok_a = raw_a["status"] == STATUS_OPTIMAL
         nanv = torch.full((), float("nan"), dtype=dt, device=dev)
-        x0, y0, z0 = (torch.where(ok_a[:, None], raw_a[k].to(dt), nanv)
-                      for k in ("x", "y", "z"))
-        t0 = time.perf_counter()
-        with span("cvx.cascade.b"):
-            raw = dict(phase_b(c, G, h, A, b, x0, y0, z0))
-        if instrument:
-            _sync()
-            prof["b_iters"] = int(raw["iterations"].sum())
-            prof["b_s"] = time.perf_counter() - t0
-            prof["b_host_syncs"] = raw["host_syncs"]
-        raw["iterations"] = raw["iterations"] + raw_a["iterations"]
-        raw["phase1_iterations"] = raw_a["iterations"]
+        return tuple(torch.where(ok_a[:, None], raw_a[k].to(dt), nanv)
+                     for k in ("x", "y", "z"))
 
-        t0 = time.perf_counter()
-
-        def run_c(ii):
-            if shared_GhAb:
-                return phase_c(c[ii], G, h, A, b)
-            return phase_c(c[ii], G[ii], h[ii], A[ii], b[ii])
-
-        c_syncs = [0]
-        with span("cvx.cascade.c"):
-            nflag = rescue_compacted(raw, out_keys, run_c, dev, c_syncs)
-        if instrument:
-            _sync()
-            prof["c_iters"] = int(raw["rescue_iterations"].sum())
-            prof["c_s"] = time.perf_counter() - t0
-            prof["c_instances"] = nflag
-            prof["c_host_syncs"] = c_syncs[0]
-            raw["profile"] = prof
-        return raw
-
-    solve.phase_a = phase_a
-    solve.phase_b = phase_b
-    solve.phase_c = phase_c
-    return solve
-
-
-def _prep_inputs(c, G, h, dims, A, b, dtype=torch.float64, device="cuda",
-                 allow_ops=False):
-    """Single-problem inputs as tensors: c (n,), G (cdim, n), h (cdim,),
-    A (p, n), b (p,), with 's' rows symmetrized from their column-major
-    lower triangles.  With ``allow_ops`` (a user kktsolver is given), G
-    and A may be operators and c a dict of blocks; they pass through
-    (c's leaves as tensors).  Without, either raises ValueError, as in
-    the JAX package."""
-    kw = dict(dtype=dtype, device=resolve_device(device))
-    if isinstance(c, dict):
-        if not allow_ops:
-            raise ValueError("pytree-valued c requires operator-form "
-                             "G/A and a custom kktsolver")
-        c = _tmap(lambda u: torch.as_tensor(u, **kw), c)
-        n = sum(u.numel() for u in _leaves(c))
-    else:
-        c = torch.as_tensor(c, **kw).reshape(-1)
-        n = c.shape[0]
-    G_op, A_op = _is_operator(G), _is_operator(A)
-    if (G_op or A_op) and not allow_ops:
-        raise ValueError("use of operator-form G/A requires a "
-                         "user-provided kktsolver")
-    h = torch.as_tensor(h, **kw).reshape(-1)
-    if dims is None:
-        dims = ConeDims(l=h.shape[0])
-    elif isinstance(dims, dict):
-        dims = ConeDims.from_dict(dims)
-    if h.shape[0] != dims.cdim:
-        raise TypeError(f"'h' must have length {dims.cdim}")
-    if not G_op:
-        G = torch.as_tensor(G, **kw).reshape(-1, n)
-        if G.shape[0] != dims.cdim:
-            raise TypeError(f"'G' must have {dims.cdim} rows")
-        G = cones.symmetrize_lower(G.transpose(0, 1), dims).transpose(0, 1)
-    if A is None:
-        A = torch.zeros((0, n), **kw)
-        A_op = False
-    elif not A_op:
-        A = torch.as_tensor(A, **kw).reshape(-1, n)
-    if b is None:
-        b = torch.zeros((0 if A_op else A.shape[0],), **kw)
-    else:
-        b = torch.as_tensor(b, **kw).reshape(-1)
-    h = cones.symmetrize_lower(h, dims)
-    return c, G, h, dims, A, b
-
-
-def _start_values(d, keys, dims, dtype, dev, tree=False):
-    """A warm-start dict as batched (B = 1) tensors; 's' and 'z' are
-    symmetrized and must lie in the interior of the cone.  With `tree`,
-    'x' is a dict of blocks like c."""
-    if d is None:
-        return None
-    out = {}
-    for k in keys:
-        if k not in d:
-            continue
-        if tree and k == "x":
-            out[k] = _tmap(lambda u: torch.as_tensor(
-                u, dtype=dtype, device=dev).unsqueeze(0), d[k])
-            continue
-        v = torch.as_tensor(d[k], dtype=dtype, device=dev).reshape(1, -1)
-        if k in ("s", "z"):
-            v = cones.symmetrize_lower(v, dims)
-            with span("cvx.frontend.sync"):
-                outside = float(cones.max_step(v, dims)[0]) >= 0
-            if outside:
-                raise ValueError(f"initial {k} is not positive")
-        out[k] = v
-    return out
+    out_keys = ("x", "y", "s", "z", "status", "gap", "relgap",
+                "pcost", "dcost", "pres", "dres", "pinfres",
+                "dinfres", "primal_slack", "dual_slack")
+    return ipm.cascade(phase_a, phase_b, phase_c, handoff, out_keys,
+                       1 if shared_GhAb else 5, instrument, dev)
 
 
 @spanned("cvx.frontend.conelp")

@@ -20,7 +20,6 @@ Status codes: 0 optimal, 3 unknown (maxiters), 4 unknown (singular).
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Optional
 
 import torch
@@ -29,16 +28,17 @@ from cvxopt_tpu_torch import cones
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch import scaling as nt
 from cvxopt_tpu_torch import kkt as kktmod
+from cvxopt_tpu_torch import ipm
 from cvxopt_tpu_torch import ipm_graph
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.ops.matvec import mv, vdot
 from cvxopt_tpu_torch.trace import span, spanned
-from cvxopt_tpu_torch.conelp import (
+from cvxopt_tpu_torch.ipm import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_NEEDS_F64, STATUS_STRINGS,
     STEP, EXPON, RESCUE_STALL_ITERS, RESCUE_RELRES, _prep_inputs,
-    _run_loop, _running, _restart_state, _tensors, _unbatch,
-    rescue_compacted, _lp_maps, _start_values,
+    _run_loop, _running, _restart_state, _tensors, _unbatch, _lp_maps,
+    _start_values,
 )
 from cvxopt_tpu_torch._tree import (
     _col, _where, _tnorm_parts, _is_operator, _per_instance_factor,
@@ -75,7 +75,6 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
     b = b.expand(Bsz, b.shape[-1])
     e = ipm_graph.pin(tape, "e", cones.cone_identity(dims, dtype=dtype,
                                                      device=dev))
-    e_lq = e[:dims.lnl + dims.qdim]
 
     resx0, resy0, resz0 = (ipm_graph.pin(tape, k, torch.clamp(r, min=1.0))
                            for k, r in (
@@ -180,19 +179,12 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
                                               device=dev, batch=(Bsz,)))
             xc, yc, zc = f0(-q, b, h)
             sc = -zc
-            nrms = cones.snrm2(sc, dims)
             with cone_span("step"):
                 ts = cones.max_step(sc, dims)
-            sc = torch.where(
-                _col(ts >= -1e-8 * torch.clamp(nrms, min=1.0)),
-                sc + _col(1.0 + ts) * e, sc)
-            nrmz = cones.snrm2(zc, dims)
             with cone_span("step"):
                 tz = cones.max_step(zc, dims)
-            zc = torch.where(
-                _col(tz >= -1e-8 * torch.clamp(nrmz, min=1.0)),
-                zc + _col(1.0 + tz) * e, zc)
-            cold = (xc, yc, sc, zc)
+            cold = (xc, yc, cones.push_interior(sc, ts, e, dims),
+                    cones.push_interior(zc, tz, e, dims))
         if warm is None:
             x, y, s, z = cold
         elif cold is None:
@@ -250,7 +242,7 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
             for _ in range(nref):
                 v = resid4(*u, bx, by_, bz, bs)
                 # contraction of one solve round: the mixed-precision
-                # failure detector (conelp.RESCUE_RELRES)
+                # failure detector (ipm.RESCUE_RELRES)
                 relres = _tnorm_parts(v) / torch.clamp(
                     _tnorm_parts((bx, by_, bz, bs)), min=1e-30)
                 du = f4_no_ir(*v)
@@ -285,8 +277,6 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         with cone_span("step"):
             tsz, sig2, dq2 = cones.max_step_eig(
                 torch.stack([ds_sc, dz_sc]), dims)
-        sigs, sigz = sig2[0], sig2[1]
-        ds_q, dz_q = dq2[0], dq2[1]
         t = torch.clamp(torch.maximum(tsz[0], tsz[1]), min=0.0)
         step = torch.where(t == 0.0, 1.0, torch.clamp(STEP / t, max=1.0))
 
@@ -294,39 +284,11 @@ def _coneqp_solve(dims: ConeDims, *, factor_W, Pf, Gf, GTf, Af, ATf,
         x = x + _col(step) * dx
         y = y + _col(step) * dy
 
-        nlq = dims.lnl + dims.qdim
-        ds2 = torch.cat([e_lq + _col(step) * ds_q[:, :nlq],
-                         ds_q[:, nlq:]], dim=-1)
-        dz2 = torch.cat([e_lq + _col(step) * dz_q[:, :nlq],
-                         dz_q[:, nlq:]], dim=-1)
-        ds2 = nt.scale2(lmbda, ds2, dims, inverse="I")
-        dz2 = nt.scale2(lmbda, dz2, dims, inverse="I")
-
-        if dims.s:
-            lam_s = lmbda[:, nlq:]
-            sig_s = (1.0 + _col(step) * sigs) / lam_s
-            sig_z = (1.0 + _col(step) * sigz) / lam_s
-            ps, pz = [ds2[:, :dims.offs]], [dz2[:, :dims.offs]]
-            for run in dims.s_runs:
-                _, doff, cnt, m = run
-                i0 = doff - nlq
-                cs = torch.sqrt(sig_s[:, i0:i0 + cnt * m]).reshape(
-                    Bsz, cnt, m)
-                cz = torch.sqrt(sig_z[:, i0:i0 + cnt * m]).reshape(
-                    Bsz, cnt, m)
-                ps.append((cones.sview(ds2, run)
-                           * cs[..., None, :]).reshape(Bsz, -1))
-                pz.append((cones.sview(dz2, run)
-                           * cz[..., None, :]).reshape(Bsz, -1))
-            ds2 = torch.cat(ps, dim=-1)
-            dz2 = torch.cat(pz, dim=-1)
-
+        ds2, dz2 = nt.update_args(lmbda, dq2, sig2, step, e, dims)
         with cone_span("scaling"):
             W2, lmbda2 = nt.update_scaling(W, lmbda, ds2, dz2, dims)
 
-        lam_full = cones.diag_embed(lmbda2, dims)
-        s2 = nt.scale(lam_full, W2, dims, trans="T")
-        z2 = nt.scale(lam_full, W2, dims, inverse="I")
+        s2, z2 = nt.unscale(lmbda2, W2, dims)
         gap2 = vdot(lmbda2, lmbda2)
         return x, y, s2, z2, W2, lmbda2, gap2, torch.maximum(rr1, rr2)
 
@@ -512,13 +474,11 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
       C. f64-factor cold restart for the instances phase B flagged,
          compacted on the host into a power-of-two padded batch.
 
-    Total `iterations` counts all phases.  With ``instrument`` the
-    result holds per-phase wall seconds, host syncs and iteration sums
-    under ``profile``, and the IPM tapes' work (`ipm_graph`): passes
-    replayed in phases A and B and captures in the call.  A call is a
-    `cvx.cascade.solve` span, its phases `cvx.cascade.a`, `.b` and `.c`.
-    The phases are also reachable as ``solve.phase_a``, ``solve.phase_b``
-    and ``solve.phase_c``.
+    The phases run in `ipm.cascade`: total `iterations` counts all phases,
+    ``instrument`` adds the ``profile``, and the phases are also
+    reachable as ``solve.phase_a``, ``solve.phase_b`` and
+    ``solve.phase_c``.  Phase A hands phase B its iterates as
+    ``initvals``, marked invalid (``_valid``) where it did not finish.
 
     On the card each phase replays its IPM passes from CUDA graphs from
     its second call at one set of shapes on, where its kktsolver is
@@ -577,70 +537,16 @@ def make_coneqp_cascade(dims: ConeDims, kktsolver: str = "default",
             abstol=abstol, reltol=reltol, feastol=feastol,
             refinement=max(1, refinement))
 
+    def handoff(raw_a, args):
+        iv = {k: raw_a[k].to(args[0].dtype) for k in ("x", "y", "s", "z")}
+        iv["_valid"] = raw_a["status"] == STATUS_OPTIMAL
+        return (iv,)
+
     out_keys = ("x", "y", "s", "z", "status", "gap", "relgap",
                 "pcost", "dcost", "pres", "dres", "primal_slack",
                 "dual_slack")
-
-    def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    def replays():
-        return ipm_graph.COUNTS["replays"]
-
-    @spanned("cvx.cascade.solve")
-    def solve(P, q, G, h, A, b):
-        P, q, G, h, A, b = _tensors(dev, P, q, G, h, A, b)
-        prof = {}
-        captures, r0 = ipm_graph.COUNTS["captures"], replays()
-        t0 = time.perf_counter()
-        with span("cvx.cascade.a"):
-            raw_a = phase_a(P, q, G, h, A, b)
-        if instrument:
-            _sync()
-            prof["a_iters"] = int(raw_a["iterations"].sum())
-            prof["a_s"] = time.perf_counter() - t0
-            prof["a_host_syncs"] = raw_a["host_syncs"]
-            prof["a_replays"], r0 = replays() - r0, replays()
-        iv = {k: raw_a[k].to(P.dtype) for k in ("x", "y", "s", "z")}
-        iv["_valid"] = raw_a["status"] == STATUS_OPTIMAL
-        t0 = time.perf_counter()
-        with span("cvx.cascade.b"):
-            raw = dict(phase_b(P, q, G, h, A, b, iv))
-        if instrument:
-            _sync()
-            prof["b_iters"] = int(raw["iterations"].sum())
-            prof["b_s"] = time.perf_counter() - t0
-            prof["b_host_syncs"] = raw["host_syncs"]
-            prof["b_replays"] = replays() - r0
-        raw["iterations"] = raw["iterations"] + raw_a["iterations"]
-        raw["phase1_iterations"] = raw_a["iterations"]
-
-        # ---- phase C: host-compacted f64 rescue ----------------------
-        t0 = time.perf_counter()
-
-        def run_c(ii):
-            if shared_GhAb:
-                return phase_c(P[ii], q[ii], G, h, A, b)
-            return phase_c(P[ii], q[ii], G[ii], h[ii], A[ii], b[ii])
-
-        c_syncs = [0]
-        with span("cvx.cascade.c"):
-            nflag = rescue_compacted(raw, out_keys, run_c, dev, c_syncs)
-        if instrument:
-            _sync()
-            prof["c_iters"] = int(raw["rescue_iterations"].sum())
-            prof["c_s"] = time.perf_counter() - t0
-            prof["c_instances"] = nflag
-            prof["c_host_syncs"] = c_syncs[0]
-            prof["captures"] = ipm_graph.COUNTS["captures"] - captures
-            raw["profile"] = prof
-        return raw
-
-    solve.phase_a = phase_a
-    solve.phase_b = phase_b
-    solve.phase_c = phase_c
-    return solve
+    return ipm.cascade(phase_a, phase_b, phase_c, handoff, out_keys,
+                       2 if shared_GhAb else 6, instrument, dev)
 
 
 @spanned("cvx.frontend.coneqp")

@@ -288,6 +288,17 @@ def cone_identity(dims: ConeDims, dtype=torch.float64,
     return torch.tensor(e, dtype=dtype, device=resolve_device(device))
 
 
+def push_interior(u: Tensor, t: Tensor, e: Tensor,
+                  dims: ConeDims) -> Tensor:
+    """A cold start point's push into the cone's interior
+    (coneprog.py:2044-2149): u + (1 + t) e where t = max_step(u) says
+    that u is not strictly interior (t >= -1e-8 max(1, snrm2(u))), else
+    u.  `e` is the cone's identity; t carries u's leading axes."""
+    nrm = snrm2(u, dims)
+    return torch.where((t >= -1e-8 * torch.clamp(nrm, min=1.0))[..., None],
+                       u + (1.0 + t)[..., None] * e, u)
+
+
 def diag_embed(lmbda: Tensor, dims: ConeDims) -> Tensor:
     """Diagonal storage (cdim_diag) -> full storage (cdim)."""
     nq = dims.lnl + dims.qdim

@@ -45,7 +45,7 @@ from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
 from cvxopt_tpu_torch.ops.matvec import mv, mvt, vdot
 from cvxopt_tpu_torch.trace import span
-from cvxopt_tpu_torch.conelp import (
+from cvxopt_tpu_torch.ipm import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS,
     STATUS_UNKNOWN_SINGULAR, STATUS_STRINGS, _run_loop, _unbatch,
 )
@@ -141,7 +141,6 @@ def make_cpl(dims: ConeDims, f: Callable, kktsolver="default",
     if matrix_free:
         Df_mv, Df_rmv, H_mv = mf_maps
     mnl = dims.mnl
-    nlq = dims.lnl + dims.qdim
 
     def core(c, x0, G, h, A, b):
         c = torch.as_tensor(c, device=dev)
@@ -157,7 +156,6 @@ def make_cpl(dims: ConeDims, f: Callable, kktsolver="default",
         c, x0, h, b = (u.expand(Bsz, u.shape[-1]) for u in (c, x0, h, b))
         kw = dict(dtype=dtype, device=dev)
         e = cones.cone_identity(dims, dtype=dtype, device=dev)
-        e_lq = e[:nlq]
 
         if custom_kkt:
             factor3 = _per_instance_factor(kktsolver)
@@ -498,36 +496,11 @@ def make_cpl(dims: ConeDims, f: Callable, kktsolver="default",
             x2 = ctx_f["x"] + st_ * ctx_f["dx"]
             y2 = ctx_f["y"] + st_ * ctx_f["dy"]
 
-            ds2 = torch.cat([e_lq + st_ * ctx_f["dsq"][:, :nlq],
-                             ctx_f["dsq"][:, nlq:]], dim=-1)
-            dz2 = torch.cat([e_lq + st_ * ctx_f["dzq"][:, :nlq],
-                             ctx_f["dzq"][:, nlq:]], dim=-1)
-            ds2 = nt.scale2(lmbda_f, ds2, dims, inverse="I")
-            dz2 = nt.scale2(lmbda_f, dz2, dims, inverse="I")
-
-            if dims.s:
-                lam_s = lmbda_f[:, nlq:]
-                sig_s = (1.0 + st_ * ctx_f["sigs"]) / lam_s
-                sig_z = (1.0 + st_ * ctx_f["sigz"]) / lam_s
-                ps, pz = [ds2[:, :dims.offs]], [dz2[:, :dims.offs]]
-                for run in dims.s_runs:
-                    _, doff, cnt, m = run
-                    i0 = doff - nlq
-                    cs = torch.sqrt(sig_s[:, i0:i0 + cnt * m]).reshape(
-                        Bsz, cnt, m)
-                    cz = torch.sqrt(sig_z[:, i0:i0 + cnt * m]).reshape(
-                        Bsz, cnt, m)
-                    ps.append((cones.sview(ds2, run)
-                               * cs[..., None, :]).reshape(Bsz, -1))
-                    pz.append((cones.sview(dz2, run)
-                               * cz[..., None, :]).reshape(Bsz, -1))
-                ds2 = torch.cat(ps, dim=-1)
-                dz2 = torch.cat(pz, dim=-1)
-
+            ds2, dz2 = nt.update_args(
+                lmbda_f, (ctx_f["dsq"], ctx_f["dzq"]),
+                (ctx_f["sigs"], ctx_f["sigz"]), step, e, dims)
             W2, lmbda2 = nt.update_scaling(W_f, lmbda_f, ds2, dz2, dims)
-            lam_full = cones.diag_embed(lmbda2, dims)
-            s2 = nt.scale(lam_full, W2, dims, trans="T")
-            z2 = nt.scale(lam_full, W2, dims, inverse="I")
+            s2, z2 = nt.unscale(lmbda2, W2, dims)
             return x2, y2, s2, z2, W2, lmbda2, r_new, saved_new
 
         passes = [0]

@@ -34,8 +34,10 @@ import torch
 
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import ConeDims
-from cvxopt_tpu_torch.conelp import make_conelp, make_conelp_ws, \
-    STATUS_OPTIMAL, STATUS_PRIMAL_INFEASIBLE, STATUS_DUAL_INFEASIBLE
+from cvxopt_tpu_torch.conelp import make_conelp, make_conelp_ws
+from cvxopt_tpu_torch.ipm import (
+    STATUS_OPTIMAL, STATUS_PRIMAL_INFEASIBLE, STATUS_DUAL_INFEASIBLE,
+)
 
 
 def _parse_glpk_options(opts):

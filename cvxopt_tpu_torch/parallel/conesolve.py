@@ -36,7 +36,7 @@ from cvxopt_tpu_torch.scaling import _chol_nan
 from cvxopt_tpu_torch.parallel import collectives as coll
 from cvxopt_tpu_torch.parallel.mesh import check_axis
 from cvxopt_tpu_torch.parallel.schur import _cho
-from cvxopt_tpu_torch.conelp import (
+from cvxopt_tpu_torch.ipm import (
     STATUS_RUNNING, STATUS_OPTIMAL, STATUS_UNKNOWN_MAXITERS, STEP, EXPON,
 )
 
@@ -56,7 +56,6 @@ def make_coneqp_sharded(local_dims: ConeDims, mesh, axis: str = "cone",
     check_axis(mesh, axis)
     ldims = local_dims
     cdim_diag_g = ldims.cdim_diag * mesh.size
-    nlq = ldims.lnl + ldims.qdim
     psum = lambda v: coll.psum(v, mesh)
     psdot = lambda u, v: coll.psdot(u, v, ldims, mesh)
 
@@ -64,7 +63,6 @@ def make_coneqp_sharded(local_dims: ConeDims, mesh, axis: str = "cone",
         p = A.shape[0]
         dtype, dev = q.dtype, q.device
         e = cones.cone_identity(ldims, dtype=dtype, device=dev)
-        e_lq = e[:nlq]
 
         resx0 = torch.clamp(torch.linalg.vector_norm(q), min=1.0)
         resy0 = torch.clamp(torch.linalg.vector_norm(b), min=1.0)
@@ -167,29 +165,10 @@ def make_coneqp_sharded(local_dims: ConeDims, mesh, axis: str = "cone",
 
             x = x + step * dx
             y = y + step * dy
-            ds2 = torch.cat([e_lq + step * ds_q[:nlq], ds_q[nlq:]])
-            dz2 = torch.cat([e_lq + step * dz_q[:nlq], dz_q[nlq:]])
-            ds2 = nt.scale2(lmbda, ds2, ldims, inverse="I")
-            dz2 = nt.scale2(lmbda, dz2, ldims, inverse="I")
-            if ldims.s:
-                lam_s = lmbda[nlq:]
-                sig_s = (1.0 + step * sigs) / lam_s
-                sig_z = (1.0 + step * sigz) / lam_s
-                vs, vz = [ds2[:ldims.offs]], [dz2[:ldims.offs]]
-                for run in ldims.s_runs:
-                    _, doff, cnt, m = run
-                    i0 = doff - nlq
-                    cs = torch.sqrt(sig_s[i0:i0 + cnt * m]).reshape(cnt, m)
-                    cz = torch.sqrt(sig_z[i0:i0 + cnt * m]).reshape(cnt, m)
-                    vs.append((cones.sview(ds2, run)
-                               * cs[..., None, :]).reshape(-1))
-                    vz.append((cones.sview(dz2, run)
-                               * cz[..., None, :]).reshape(-1))
-                ds2, dz2 = torch.cat(vs), torch.cat(vz)
+            ds2, dz2 = nt.update_args(lmbda, (ds_q, dz_q), (sigs, sigz),
+                                      step, e, ldims)
             W2, lmbda2 = nt.update_scaling(W, lmbda, ds2, dz2, ldims)
-            lam_full = cones.diag_embed(lmbda2, ldims)
-            s2 = nt.scale(lam_full, W2, ldims, trans="T")
-            z2 = nt.scale(lam_full, W2, ldims, inverse="I")
+            s2, z2 = nt.unscale(lmbda2, W2, ldims)
             gap2 = psum(torch.sum(lmbda2 * lmbda2))
             return x, y, s2, z2, W2, lmbda2, gap2
 

@@ -6,6 +6,8 @@ Twin of `cvxopt_tpu/scaling.py`:
   scale2           H(lambda^{1/2})*x, H(lambda^{-1/2})*x
   compute_scaling  initial W with W*z = W^{-T}*s = lambda
   update_scaling   rank-preserving NT update
+  update_args      update_scaling's arguments after a step
+  unscale          s, z from lambda and W
   identity_scaling W = I
 
 W is a dict: W['d'], W['di'] (..., l); W['dnl'], W['dnli'] (..., mnl)
@@ -28,7 +30,8 @@ import torch
 
 from cvxopt_tpu_torch._device import resolve_device
 from cvxopt_tpu_torch.cones import (
-    ConeDims, jdot, jnrm2, qview, sview, sdiagview, _flat, _bcast,
+    ConeDims, jdot, jnrm2, qview, sview, sdiagview, diag_embed, _flat,
+    _bcast,
 )
 from cvxopt_tpu_torch.ops.jacobi import gram_eigh_accurate
 
@@ -273,6 +276,46 @@ def compute_scaling(s: Tensor, z: Tensor, dims: ConeDims):
     lmbda = (torch.cat(lparts, dim=-1) if lparts
              else s.new_zeros(s.shape[:-1] + (0,)))
     return W, lmbda
+
+
+def update_args(lmbda: Tensor, dq, sig, step: Tensor, e: Tensor,
+                dims: ConeDims):
+    """The s and z arguments of `update_scaling` after a step of length
+    `step` (per instance) along the scaled directions ds, dz, from the
+    parts (sig, Qx) that `cones.max_step_eig` returns for them: `dq` is
+    the pair (Qds, Qdz), `sig` the pair (sig_s, sig_z), each member
+    stacked on a leading axis or a tuple (coneprog.py:1336-1436).  Their
+    'l' and 'q' parts are e + step * d and their 's' parts the
+    eigenvector matrices; each is scaled by H(lambda^{-1/2}), then
+    column j of an 's' block by sqrt((1 + step sig_j) / lambda_j).  `e`
+    is the cone's identity; returns (ds2, dz2)."""
+    nlq = dims.lnl + dims.qdim
+    col = step[..., None]
+    out = []
+    for d, sg in zip(dq, sig):
+        d2 = torch.cat([e[:nlq] + col * d[..., :nlq], d[..., nlq:]], dim=-1)
+        d2 = scale2(lmbda, d2, dims, inverse="I")
+        if dims.s:
+            f = (1.0 + col * sg) / lmbda[..., nlq:]
+            lead = d2.shape[:-1]
+            parts = [d2[..., :dims.offs]]
+            for run in dims.s_runs:
+                _, doff, cnt, m = run
+                i0 = doff - nlq
+                c = torch.sqrt(f[..., i0:i0 + cnt * m]).reshape(
+                    lead + (cnt, m))
+                parts.append((sview(d2, run) * c[..., None, :]).reshape(
+                    lead + (-1,)))
+            d2 = torch.cat(parts, dim=-1)
+        out.append(d2)
+    return tuple(out)
+
+
+def unscale(lmbda: Tensor, W: Dict, dims: ConeDims):
+    """(s, z) = (W' lambda, W^{-1} lambda), lmbda in diagonal storage
+    (coneprog.py:1413-1433)."""
+    lam = diag_embed(lmbda, dims)
+    return scale(lam, W, dims, trans="T"), scale(lam, W, dims, inverse="I")
 
 
 def update_scaling(W: Dict, lmbda: Tensor, s: Tensor, z: Tensor,

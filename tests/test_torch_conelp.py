@@ -22,6 +22,7 @@ from cvxopt_tpu import conelp as jc
 from cvxopt_tpu.cones import ConeDims as JDims
 from cvxopt_tpu._npref import coneqp_np_cones
 from cvxopt_tpu_torch import conelp as tc
+from cvxopt_tpu_torch import ipm
 from cvxopt_tpu_torch import convert
 from cvxopt_tpu_torch.cones import ConeDims as TDims
 
@@ -278,7 +279,7 @@ def test_cascade_phase_c_rescues_flagged_instances():
     full = cold(c, G, h, A, b)
     raw = {k: full[k].clone() for k in ("x", "status", "iterations")}
     raw["x"][[1, 3, 4]] = 0.0
-    raw["status"][[1, 3, 4]] = tc.STATUS_NEEDS_F64
+    raw["status"][[1, 3, 4]] = ipm.STATUS_NEEDS_F64
     raw["iterations"][:] = 1
     seen, subs = [], []
 
@@ -288,7 +289,7 @@ def test_cascade_phase_c_rescues_flagged_instances():
         return subs[-1]
 
     syncs = [0]
-    n = tc.rescue_compacted(raw, ("x", "status"), run, dev, syncs)
+    n = ipm.rescue_compacted(raw, ("x", "status"), run, dev, syncs)
     assert n == 3 and seen == [[1, 3, 4, 1]]
     # the status read, then the batch's solve and its iterations read
     assert syncs[0] == 1 + subs[0]["host_syncs"] + 1
@@ -350,7 +351,7 @@ def test_make_conelp_refresh_matches_jax(segment):
     segment mode; x and status are compared, and the iteration count
     only where no refresh happened."""
     c, G, h, dims = DOC_CONELP
-    _, Gt, ht, td, At, bt = tc._prep_inputs(c, G, h, dims, None, None,
+    _, Gt, ht, td, At, bt = ipm._prep_inputs(c, G, h, dims, None, None,
                                             device="cpu")
     args = (c, Gt.numpy(), ht.numpy(), At.numpy(), bt.numpy())
     kw = dict(segment=segment, rounds=6)
@@ -391,7 +392,7 @@ def test_make_conelp_refresh_keeps_within_maxiters(maxiters):
                                  maxiters=maxiters, device="cpu")(*args)
     assert out["iterations"] <= maxiters
     assert out["refresh_rounds"] >= 1
-    assert int(out["status"]) == tc.STATUS_UNKNOWN_MAXITERS
+    assert int(out["status"]) == ipm.STATUS_UNKNOWN_MAXITERS
 
 
 def test_conelp_primalstart_dualstart_match_jax():

@@ -1,6 +1,7 @@
 """The port's cone algebra (cvxopt_tpu_torch/cones.py) against
 cvxopt_tpu/cones.py in float64 on the same seeded numpy inputs, with a
-leading batch axis, within 1e-12."""
+leading batch axis, within 1e-12; and `push_interior`, which the solvers'
+cold start points share, on its own."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -130,3 +131,19 @@ def test_max_step_eig(data):
         X = (V * w[..., None, :]) @ np.swapaxes(V, -1, -2)
         _close(X, tc.sview(torch.as_tensor(xs), run).numpy(), 1e-11)
     _close(Q[:, :TD.offs], x[:, :TD.offs])
+
+
+def test_push_interior_moves_only_points_outside():
+    rng = np.random.default_rng(0)
+    e = tc.cone_identity(TD, dtype=torch.float64, device="cpu")
+    u = torch.as_tensor(_interior(rng, TD, (4,)))
+    u[1, 0] = -1.0           # an 'l' entry below zero
+    u[2, 3] = 0.0            # the first 'q' block's head at zero
+    t = tc.max_step(u, TD)
+    out = tc.push_interior(u, t, e, TD)
+    outside = t >= -1e-8
+    assert outside.tolist() == [False, True, True, False]
+    assert torch.equal(out[~outside], u[~outside])
+    assert torch.equal(out[outside], u[outside] + (1.0 + t[outside, None])
+                       * e)
+    assert (tc.max_step(out, TD) < 0).all()

@@ -4,7 +4,9 @@ a batch of instances (vmapped on the JAX side), within 1e-12.
 
 Eigenvectors of the 's' blocks are fixed only up to sign, so the 's'
 parts of W are compared through r r' and rti rti'; the scale functions
-are compared on one W (the JAX package's) handed to both."""
+are compared on one W (the JAX package's) handed to both.  `unscale`
+and `update_args`, which the solvers' step updates share, are tested on
+their own."""
 
 import numpy as np
 import jax
@@ -14,7 +16,7 @@ import torch
 
 from cvxopt_tpu import scaling as js
 from cvxopt_tpu.cones import ConeDims as JDims
-from cvxopt_tpu_torch import scaling as ts
+from cvxopt_tpu_torch import cones as tc, scaling as ts
 from cvxopt_tpu_torch.cones import ConeDims as TDims
 
 from test_torch_cones import _interior, _diag_interior
@@ -137,3 +139,31 @@ def test_update_scaling(data):
                                torch.as_tensor(z_new), TD)
     _close(lt, lj, 1e-11)
     _check_W(Wt, Wj)
+
+
+def test_unscale_inverts_compute_scaling():
+    rng = np.random.default_rng(1)
+    s, z = (torch.as_tensor(_interior(rng, TD, (3,))) for _ in range(2))
+    W, lmbda = ts.compute_scaling(s, z, TD)
+    s2, z2 = ts.unscale(lmbda, W, TD)
+    torch.testing.assert_close(s2, s, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(z2, z, rtol=1e-10, atol=1e-10)
+
+
+def test_update_args_at_a_zero_step():
+    """With step 0 the 'l'/'q' parts are H(lambda^{-1/2}) e and each 's'
+    block's eigenvectors scaled by lambda^{-1/2}: the update then keeps
+    the scaling."""
+    rng = np.random.default_rng(2)
+    s, z = (torch.as_tensor(_interior(rng, TD, (2,))) for _ in range(2))
+    W, lmbda = ts.compute_scaling(s, z, TD)
+    d = torch.as_tensor(_interior(rng, TD, (2, 2))) * 0.01
+    _, sig, dq = tc.max_step_eig(d, TD)
+    e = tc.cone_identity(TD, dtype=torch.float64, device="cpu")
+    ds2, dz2 = ts.update_args(lmbda, dq, sig, torch.zeros(2, dtype=s.dtype),
+                              e, TD)
+    W2, lmbda2 = ts.update_scaling(W, lmbda, ds2, dz2, TD)
+    torch.testing.assert_close(lmbda2, lmbda, rtol=1e-9, atol=1e-9)
+    s3, z3 = ts.unscale(lmbda2, W2, TD)
+    torch.testing.assert_close(s3, s, rtol=1e-8, atol=1e-8)
+    torch.testing.assert_close(z3, z, rtol=1e-8, atol=1e-8)

@@ -8,12 +8,16 @@ problems — twins of the cases of tests/test_simplex.py:
     `_phase` of both packages: each phase's pivot count and final basis
     equal;
   - boeing2.mps (highly degenerate: its optimal vertex is not unique, so
-    the objectives are compared, within 1e-9 relative);
+    the objectives are compared, within 1e-9 relative; the JAX package
+    solves in a child interpreter held to one core);
   - the batched mode against `jax.vmap`;
   - the options plumbing, it_lim, and tm_lim with the port's clock
     replaced by a fake one."""
 
+import json
 import os
+import subprocess
+import sys
 import warnings
 
 import numpy as np
@@ -22,8 +26,8 @@ import pytest
 import torch
 
 from cvxopt_tpu import glpk as jglpk, simplex as js, solvers as jsolvers
-from cvxopt_tpu.mpsio import mps_load
 from cvxopt_tpu_torch import glpk as tglpk, simplex as ts
+from cvxopt_tpu_torch.mpsio import mps_load
 from cvxopt_tpu_torch import solvers as tsolvers
 
 # tiny tensors: one thread per test process, so that parallel test
@@ -194,20 +198,54 @@ def test_unbatched_make_simplex():
     np.testing.assert_allclose(x.numpy(), [1.0, 1.0], atol=1e-9)
 
 
-def test_boeing2_via_simplex():
+# The JAX package's simplex on boeing2.mps, in a child interpreter whose
+# threads all stay on one core.  XLA:CPU's runtime passes the solve's
+# work between its threads: while other test workers keep every core
+# busy, the solve, 6 s alone, had not ended after 90 s on an 8-core CPU
+# beside ten busy processes, and took 14 s there with its threads on one
+# core.  The affinity is set before JAX starts its threads.
+BOEING2_JAX = """
+import json, os, sys
+os.sched_setaffinity(0, {{max(os.sched_getaffinity(0))}})
+sys.path.insert(0, {root!r})
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import numpy as np
+from cvxopt_tpu import solvers
+d = np.load({npz!r})
+ref = solvers.lp(d["c"], d["G"], d["h"], A=d["A"], b=d["b"],
+                 solver="glpk", options={opts!r})
+print(json.dumps([ref["status"], ref["primal objective"]]))
+"""
+
+
+def test_boeing2_via_simplex(tmp_path):
     """boeing2.mps (166 rows, 143 columns): the same NETLIB objective as
     the JAX package's simplex and the IPM path."""
     d = mps_load(os.path.join(os.path.dirname(__file__), "data",
                               "boeing2.mps"))
     c, G, h, A, b = d.to_lp()
     opts = {"glpk": {"it_lim": 20000}}
-    sol = tsolvers.lp(c, G, h, A=A, b=b, solver="glpk", options=opts,
-                      **CPU)
-    ref = jsolvers.lp(c, G, h, A=A, b=b, solver="glpk", options=opts)
-    assert sol["status"] == ref["status"] == "optimal"
+    npz = str(tmp_path / "boeing2.npz")
+    np.savez(npz, c=c, G=G, h=h, A=A, b=b)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    child = subprocess.Popen(
+        [sys.executable, "-c", BOEING2_JAX.format(root=root, npz=npz,
+                                                  opts=opts)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        sol = tsolvers.lp(c, G, h, A=A, b=b, solver="glpk", options=opts,
+                          **CPU)
+        out, err = child.communicate(timeout=600)
+    finally:
+        child.kill()
+    assert child.returncode == 0, err[-3000:]
+    ref_status, ref_objective = json.loads(out.strip().splitlines()[-1])
+    assert sol["status"] == ref_status == "optimal"
     assert abs(sol["primal objective"] - (-315.0187280)) < 1e-3
-    assert abs(sol["primal objective"] - ref["primal objective"]) <= \
-        1e-9 * abs(ref["primal objective"])
+    assert abs(sol["primal objective"] - ref_objective) <= \
+        1e-9 * abs(ref_objective)
     assert sol["primal infeasibility"] < 1e-7
     assert sol["dual infeasibility"] < 1e-7
 
